@@ -1,0 +1,486 @@
+"""The packed LUT cascade, with its two CUDA kernels.
+
+Torch twin of `mulut_tpu.ops.tail_kernel`.  The cascade's inner stages and
+the final stage's per-mode contractions run the gather + weighted
+group-fold kernel (`gather_fold_contract`, csrc/fold_contract.cu); the
+final stage's rotation un-shifts, quad-lane un-rotation, exact stage mix,
+PixelShuffle interleave and uint8 packing run in one pass of
+`tail_assemble` (csrc/tail_assemble.cu).  The output is packed 32-bit words
+whose bytes are the row-major uint8 image (`unpack_u32`), byte-identical
+to the JAX package (ref behavior: sr/4_test_lut.py:263-306).
+
+Each kernel wrapper runs its plain torch version when given CPU tensors
+and launches the kernel when given CUDA tensors; it never falls back from
+one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import ensemble as ens
+from . import simplex as sx
+from ._build import library
+from .taps import (
+    fold_geometry,
+    lane_rotation_perm,
+    mode_pad,
+    mode_taps,
+    rotated_taps,
+)
+
+_MAX_MODES = 6          # csrc/tail_assemble.cu MULUT_MAX_MODES
+_FOLD_LANES = (8, 16, 64)
+
+#: Kernel launches per wrapper (CUDA launches only; the plain CPU versions
+#: do not count).  A run resets them to 0 to show which kernels it used.
+LAUNCHES = {"gather_fold_contract": 0, "tail_assemble": 0}
+
+
+def _pad128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _pad_ragged(img, pad: int, extra_cols: int):
+    return ens._edge_pad(img, (pad, pad), (pad, pad + extra_cols))
+
+
+def _pad8_base_fracs(base, fr):
+    """Append the 8 junk sites of the contraction buffers at the index/frac
+    level.  Junk sites gather row 0 and get the frac-0 weight vector; no
+    consumer reads them."""
+    return F.pad(base, (0, 8)), tuple(F.pad(f, (0, 8)) for f in fr)
+
+
+def _check_device(*ts):
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError("all tensors must be on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# K1: gather + weighted group-fold contraction
+# ---------------------------------------------------------------------------
+
+
+def gather_fold_contract_plain(tab, base, wt, *, C: int, u: int):
+    """Plain torch version of `gather_fold_contract` (same contract)."""
+    g = tab.index_select(0, base.clamp(0, tab.shape[0] - 1))   # (Np, C*u)
+    acc = None
+    for c in range(C):
+        term = wt[c].unsqueeze(1) * g[:, c * u:(c + 1) * u].to(torch.float32)
+        acc = term if acc is None else acc + term
+    return acc.T.contiguous()
+
+
+@functools.cache
+def _fold_fn():
+    fn = library("fold_contract").gather_fold_contract
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gather_fold_contract(tab, base, wt, *, C: int, u: int):
+    """(u, Np) f32: out[j, n] = sum_c wt[c, n] * tab[base[n], c*u + j].
+
+    The TPU form is `fold_contract(jnp.take(tab, base), wt)`; here the row
+    gather is fused into the kernel.  tab (R, C*u) int8; base (Np,) int32
+    (clamped into [0, R), as jnp.take(mode="clip")); wt (C, Np) float32
+    integer weights <= 2**interval.  All sums are integers below 2**24, so
+    the result is exact.
+    """
+    Np = base.shape[0]
+    if tab.dim() != 2 or tab.shape[1] != C * u or tab.dtype != torch.int8:
+        raise ValueError(f"tab must be (R, {C * u}) int8, got "
+                         f"{tuple(tab.shape)} {tab.dtype}")
+    if base.dim() != 1 or base.dtype != torch.int32:
+        raise ValueError("base must be a 1-D int32 tensor")
+    if wt.shape != (C, Np) or wt.dtype != torch.float32:
+        raise ValueError(f"wt must be ({C}, {Np}) float32, got "
+                         f"{tuple(wt.shape)} {wt.dtype}")
+    dev = _check_device(tab, base, wt)
+    if dev.type == "cpu":
+        return gather_fold_contract_plain(tab, base, wt, C=C, u=u)
+    if C != 16 or u not in _FOLD_LANES:
+        raise ValueError(f"the CUDA kernel takes C=16, u in {_FOLD_LANES}; "
+                         f"got C={C}, u={u}")
+    if not (tab.is_contiguous() and base.is_contiguous()
+            and wt.is_contiguous()):
+        raise ValueError("gather_fold_contract needs contiguous inputs")
+    if tab.data_ptr() % 16:
+        raise ValueError("tab must be 16-byte aligned")
+    out = torch.empty((u, Np), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _fold_fn()(
+            tab.data_ptr(), base.data_ptr(), wt.data_ptr(), out.data_ptr(),
+            Np, tab.shape[0], u, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"gather_fold_contract: CUDA error {err}")
+    LAUNCHES["gather_fold_contract"] += 1
+    return out
+
+
+def _contract_t(tab, base, fr, *, C: int, u: int, interval: int):
+    """(u, Np) contraction of the rows `tab[base]` with the 16-corner
+    weights of the (pre-padded) fracs."""
+    if C != 16:
+        raise NotImplementedError(
+            "rank-expanded (5-corner) tables are a later slice; the packed "
+            "cascade here takes the 16-corner formats")
+    wt = sx.corner_lams_t(*fr, interval=interval)
+    return gather_fold_contract(tab, base, wt, C=C, u=u)
+
+
+def _contract(tab, base, fr, *, C: int, v: int, interval: int):
+    """(Np, v) view of `_contract_t` (a transpose, no copy; `tail_assemble`
+    reads it through its strides)."""
+    return _contract_t(tab, base, fr, C=C, u=v, interval=interval).T
+
+
+def stage1_fold_k128(tab, img, *, mode: str, interval: int):
+    """Inner-stage (v == 1) rotation ensemble of a symmetric mode over a
+    (L**4, 128) int8 k128 table: one gather + contraction (C=16, u=8)
+    yields the per-rotation extended-plane values (rows 4..7 zero); the
+    rotation un-shifts are 1-D shifted slice adds.  Returns the
+    rotation-summed (..., h, w) f32 accumulator (integer-valued)."""
+    geo = fold_geometry(mode)
+    pad = mode_pad(mode)
+    h, w = img.shape[-2], img.shape[-1]
+    my = -min(s_[0] for s_, _ in geo)
+    mx = -min(s_[1] for s_, _ in geo)
+    he, we = h + my, w + mx
+    xp = _pad_ragged(img, pad, 0)
+    planes = [
+        xp[..., pad - my + dy: pad - my + dy + he,
+           pad - mx + dx: pad - mx + dx + we]
+        for dy, dx in mode_taps(mode)
+    ]
+    lead = planes[0].shape
+    n_ext = math.prod(lead)
+    base, fr = sx._base_and_fracs(planes, interval=interval)
+    base, fr = _pad8_base_fracs(base, fr)
+    ext = _contract_t(tab, base, fr, C=16, u=8, interval=interval)
+    m_rows = n_ext - (my * we + mx)
+    acc = None
+    for r, ((sy, sx_), _) in enumerate(geo):
+        d = (sy + my) * we + (sx_ + mx)
+        piece = ext[r, d: d + m_rows]
+        acc = piece if acc is None else acc + piece
+    acc = F.pad(acc, (0, n_ext - m_rows))
+    return acc.reshape(lead)[..., :h, :w]
+
+
+def stage1_quad_k128(tab, img, *, mode: str, interval: int):
+    """Inner-stage (v == 1) rotation ensemble of a non-symmetric mode over
+    a shared k128 table (corner m's value in lane m*8): each rotation
+    gathers with its own taps and contracts to row 0 of the (8, N) output.
+    Returns (..., h, w) f32 (integer-valued)."""
+    pad = mode_pad(mode)
+    h, w = img.shape[-2], img.shape[-1]
+    xp = _pad_ragged(img, pad, 0)
+    lead = None
+    acc = None
+    for r in range(4):
+        planes = [
+            xp[..., pad + dy: pad + dy + h, pad + dx: pad + dx + w]
+            for dy, dx in rotated_taps(mode, r)
+        ]
+        lead = planes[0].shape
+        n = math.prod(lead)
+        base, fr = sx._base_and_fracs(planes, interval=interval)
+        base, fr = _pad8_base_fracs(base, fr)
+        ext = _contract_t(tab, base, fr, C=16, u=8, interval=interval)
+        piece = ext[0, :n]
+        acc = piece if acc is None else acc + piece
+    return acc.reshape(lead)
+
+
+def folded_flat(flut, img, *, mode: str, v: int, interval: int):
+    """Flat rotation-folded contraction of a 90-degree-symmetric mode.
+
+    Evaluates the extended window plane with one extra junk row and a
+    128-aligned width, like the TPU layout, so the tail's reads match it
+    element for element.  Returns (ext (n_ext+8, 4v) f32 strided view,
+    he, we, unshift offsets)."""
+    geo = fold_geometry(mode)
+    pad = mode_pad(mode) + 1
+    h, w = img.shape[-2], img.shape[-1]
+    my = -min(s_[0] for s_, _ in geo)
+    mx = -min(s_[1] for s_, _ in geo)
+    he = h + my + 1
+    we = _pad128(w + mx)
+    xp = _pad_ragged(img, pad, we - (w + mx))
+    planes = [
+        xp[..., pad - my + dy: pad - my + dy + he,
+           pad - mx + dx: pad - mx + dx + we]
+        for dy, dx in mode_taps(mode)
+    ]
+    base, fr = sx._base_and_fracs(planes, interval=interval)
+    base, fr = _pad8_base_fracs(base, fr)
+    ext = _contract(flut, base, fr, C=flut.shape[1] // (4 * v), v=4 * v,
+                    interval=interval)
+    offs = [(sy + my) * we + (sx_ + mx) for (sy, sx_), _ in geo]
+    return ext, he, we, offs
+
+
+def quad_flat(lut, img, *, mode: str, v: int, interval: int):
+    """Flat per-rotation contractions of a non-symmetric mode over ONE
+    shared un-permuted 16-corner (L**4, 16*v) table.  Returns ([four
+    (N+8, v) f32 strided views in un-permuted lane order], wy), evaluated
+    over h+1 rows x 128-aligned width."""
+    pad = mode_pad(mode) + 1
+    h, w = img.shape[-2], img.shape[-1]
+    hy = h + 1
+    wy = _pad128(w)
+    xp = _pad_ragged(img, pad, wy - w)
+    outs = []
+    for r in range(4):
+        planes = [
+            xp[..., pad + dy: pad + dy + hy, pad + dx: pad + dx + wy]
+            for dy, dx in rotated_taps(mode, r)
+        ]
+        base, fr = sx._base_and_fracs(planes, interval=interval)
+        base, fr = _pad8_base_fracs(base, fr)
+        outs.append(_contract(lut, base, fr, C=lut.shape[-1] // v, v=v,
+                              interval=interval))
+    return outs, wy
+
+
+# ---------------------------------------------------------------------------
+# K2: final-stage assembly
+# ---------------------------------------------------------------------------
+
+
+class _TailDesc(ctypes.Structure):
+    """Mirror of `TailDesc` in csrc/tail_assemble.cu (same field order)."""
+
+    _fields_ = [
+        ("f_ptr", ctypes.c_void_p * _MAX_MODES),
+        ("f_rs", ctypes.c_longlong * _MAX_MODES),
+        ("f_ls", ctypes.c_longlong * _MAX_MODES),
+        ("q_ptr", (ctypes.c_void_p * 4) * _MAX_MODES),
+        ("q_rs", (ctypes.c_longlong * 4) * _MAX_MODES),
+        ("q_ls", (ctypes.c_longlong * 4) * _MAX_MODES),
+        ("f_he", ctypes.c_int * _MAX_MODES),
+        ("f_we", ctypes.c_int * _MAX_MODES),
+        ("f_off", (ctypes.c_int * 4) * _MAX_MODES),
+        ("q_wy", ctypes.c_int * _MAX_MODES),
+        ("nf", ctypes.c_int),
+        ("nq", ctypes.c_int),
+        ("bc", ctypes.c_int),
+        ("h", ctypes.c_int),
+        ("wp", ctypes.c_int),
+        ("davg", ctypes.c_int),
+        ("q_perm", ((ctypes.c_byte * 16) * 4) * _MAX_MODES),
+    ]
+
+
+@functools.cache
+def _tail_fn():
+    fn = library("tail_assemble").tail_assemble
+    fn.argtypes = [ctypes.POINTER(_TailDesc), ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _pack_u8(vi, *, bc: int, h: int, wp: int, scale: int):
+    """(bc, h, wp, scale*scale) sub-pixel values in [0, 255] -> int32
+    (bc*h, scale, wp) whose little-endian bytes are the row-major image."""
+    q = vi.reshape(bc, h, wp, scale, scale).permute(0, 1, 3, 2, 4)
+    b = q.to(torch.uint8).contiguous()                    # (bc, h, py, wp, px)
+    return b.view(torch.int32).reshape(bc * h, scale, wp)
+
+
+def tail_assemble_plain(folded, quads, *, bc: int, h: int, wp: int,
+                        scale: int, davg: int):
+    """Plain torch version of `tail_assemble` (same arguments, same
+    bytes)."""
+    v = scale * scale
+    dev = (folded[0][0] if folded else quads[0][0][0]).device
+    b = torch.arange(bc, device=dev).view(bc, 1, 1)
+    y = torch.arange(h, device=dev).view(1, h, 1)
+    x = torch.arange(wp, device=dev).view(1, 1, wp)
+    acc = torch.zeros((bc, h, wp, v), dtype=torch.int32, device=dev)
+    for outs, wy, perms in quads:
+        site = (b * (h + 1) + y) * wy + x
+        for r, o in enumerate(outs):
+            lanes = torch.as_tensor(np.asarray(perms[r]), device=dev)
+            acc += o.index_select(1, lanes)[site].to(torch.int32)
+    for ext, he, we, offs in folded:
+        for r, d_r in enumerate(offs):
+            site = (b * he + y) * we + d_r + x
+            acc += ext[:, r * v:(r + 1) * v][site].to(torch.int32)
+    vi = ens.round_half_even_div(torch.clamp(acc, 0, 255 * davg), davg)
+    return _pack_u8(vi, bc=bc, h=h, wp=wp, scale=scale)
+
+
+def _check_buffer(t, lanes: int, max_site: int, what: str):
+    if t.dim() != 2 or t.shape[1] != lanes or t.dtype != torch.float32:
+        raise ValueError(f"{what} must be (N, {lanes}) float32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if t.shape[0] <= max_site:
+        raise ValueError(f"{what} has {t.shape[0]} sites; the tail reads "
+                         f"up to site {max_site}")
+
+
+def tail_assemble(folded, quads, *, lead, h: int, w: int, scale: int,
+                  davg: int):
+    """Assemble the final stage from flat mode buffers.
+
+    folded: list of (ext, he, we, offs) from `folded_flat`;
+    quads: list of ([4 x (N+8, v) f32], wy, perms) from `quad_flat`.
+    Returns int32 (prod(lead) * h, scale, wp) whose bytes equal the JAX
+    kernel's packed u32 output — see `unpack_u32`.
+    """
+    if scale != 4:
+        raise NotImplementedError("the packed tail is x4 only (4 sub-pixels "
+                                  "per 32-bit word)")
+    bc = math.prod(lead)
+    v = scale * scale
+    wp = _pad128(w)
+    bufs = [f[0] for f in folded] + [o for q in quads for o in q[0]]
+    if not bufs:
+        raise ValueError("tail_assemble needs at least one mode")
+    dev = _check_device(*bufs)
+    for ext, he, we, offs in folded:
+        if len(offs) != 4 or min(offs) < 0:
+            raise ValueError("a folded mode has 4 non-negative rotation "
+                             "offsets")
+        _check_buffer(ext, 4 * v, ((bc - 1) * he + h - 1) * we + max(offs)
+                      + wp - 1, "folded buffer")
+    for outs, wy, perms in quads:
+        if (len(outs) != 4 or wy < wp or len(perms) != 4
+                or any(sorted(int(x) for x in p_) != list(range(v))
+                       for p_ in perms)):
+            raise ValueError("a quad mode has 4 rotation buffers, 4 lane "
+                             "permutations and a row pitch of at least wp")
+        for o in outs:
+            _check_buffer(o, v, ((bc - 1) * (h + 1) + h - 1) * wy + wp - 1,
+                          "quad buffer")
+    if dev.type == "cpu":
+        return tail_assemble_plain(folded, quads, bc=bc, h=h, wp=wp,
+                                   scale=scale, davg=davg)
+    if len(folded) > _MAX_MODES or len(quads) > _MAX_MODES:
+        raise ValueError(f"the CUDA tail takes at most {_MAX_MODES} folded "
+                         f"and {_MAX_MODES} quad modes")
+    d = _TailDesc()
+    for i, (ext, he, we, offs) in enumerate(folded):
+        d.f_ptr[i] = ext.data_ptr()
+        d.f_rs[i], d.f_ls[i] = ext.stride()
+        d.f_he[i], d.f_we[i] = he, we
+        for r in range(4):
+            d.f_off[i][r] = offs[r]
+    for i, (outs, wy, perms) in enumerate(quads):
+        d.q_wy[i] = wy
+        for r, o in enumerate(outs):
+            d.q_ptr[i][r] = o.data_ptr()
+            d.q_rs[i][r], d.q_ls[i][r] = o.stride()
+            for vv in range(v):
+                d.q_perm[i][r][vv] = int(perms[r][vv])
+    d.nf, d.nq, d.bc, d.h, d.wp, d.davg = (len(folded), len(quads), bc, h,
+                                           wp, int(davg))
+    out = torch.empty((bc * h, scale, wp), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _tail_fn()(ctypes.byref(d), out.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tail_assemble: CUDA error {err}")
+    LAUNCHES["tail_assemble"] += 1
+    return out
+
+
+def supports_tail_kernel(modes: str, scale: int) -> bool:
+    """The packed cascade covers x4 (4 sub-pixels per 32-bit word) on mode
+    sets where every mode is 90-degree-symmetric (s/d/e) or not (y/h/o)."""
+    return scale == 4 and all(m in "sdeyho" for m in modes)
+
+
+def lut_cascade_packed(tabs, img, *, stages: int, modes: str, scale: int,
+                       interval: int = 4, valid_hw=None):
+    """Full cascade with the final stage assembled by `tail_assemble`;
+    returns packed int32 (B*C*h, scale, wp) — `unpack_u32` yields the
+    uint8 image (byte view).
+
+    `tabs` are `ensemble.prepare_expanded_luts` tables (the formats are
+    recognized by shape).  img: (..., H, W) integer in [0, 255]; channels
+    ride the leading dims.  valid_hw: optional (h, w) scalars or (B,)
+    vectors for bucketed evaluation (see `ensemble.clamp_pad_region`).
+    Byte-identical to `mulut_tpu`'s `lut_cascade_packed`.
+    """
+    q = 2 ** interval
+    x = img.to(torch.int32)
+    for s in range(stages - 1):
+        if valid_hw is not None:
+            x = ens.clamp_pad_region(x, valid_hw)
+        acc = None
+        for mode in modes:
+            lut = tabs[f"s{s + 1}_{mode}"]
+            k128 = (lut.dim() == 2 and lut.shape[-1] == 128
+                    and lut.dtype == torch.int8)
+            if k128 and fold_geometry(mode) is not None:
+                out = stage1_fold_k128(lut, x, mode=mode, interval=interval)
+            elif k128:
+                out = stage1_quad_k128(lut, x, mode=mode, interval=interval)
+            elif fold_geometry(mode) is not None:
+                raise NotImplementedError(
+                    "the (L**4, 64) folded inner-stage format runs through "
+                    "lut_cascade_int, a later slice; use the k128 tables")
+            else:
+                out = ens.rotation_ensemble_lanes_quad_int(
+                    lut, x, mode=mode, upscale=1, interval=interval,
+                )[..., 0]
+            acc = out if acc is None else acc + out
+        # k128 contributions are integer-valued f32 (< 2**24 — exact)
+        acc = acc.to(torch.int32)
+        x = ens.stage_mix(acc, q=q, avg_factor=len(modes) * 4, bias=127)
+    if valid_hw is not None:
+        x = ens.clamp_pad_region(x, valid_hw)
+    v = scale * scale
+    folded, quads = [], []
+    for mode in modes:
+        lut = tabs[f"s{stages}_{mode}"]
+        # a shared (L**4, 16*v) 16-corner table routes through the quad
+        # path even for foldable modes; folded tables are 64*v wide
+        corner16 = lut.dim() == 2 and lut.shape[-1] == 16 * v
+        if fold_geometry(mode) is not None and not corner16:
+            folded.append(
+                folded_flat(lut, x, mode=mode, v=v, interval=interval)
+            )
+        else:
+            outs, wy = quad_flat(lut, x, mode=mode, v=v, interval=interval)
+            perms = [lane_rotation_perm(scale, r) for r in range(4)]
+            quads.append((outs, wy, perms))
+    return tail_assemble(
+        folded, quads, lead=x.shape[:-2], h=x.shape[-2], w=x.shape[-1],
+        scale=scale, davg=q * len(modes),
+    )
+
+
+def unpack_u32_device(packed, lead, h: int, w: int, scale: int):
+    """Packed (prod(lead)*h, scale, wp) words -> (*lead, h*scale, w*scale)
+    uint8 on the packed tensor's device: a byte view plus reshape (the
+    words are little-endian on both host and card)."""
+    wp = packed.shape[-1]
+    bc = math.prod(lead)
+    out = packed.contiguous().view(torch.uint8).reshape(
+        bc, h * scale, wp * scale)
+    return out.reshape(*(tuple(lead) + (h * scale, wp * scale)))[
+        ..., : w * scale]
+
+
+def unpack_u32(packed, lead, h: int, w: int, scale: int) -> np.ndarray:
+    """Host uint8 (*lead, h*scale, w*scale) image from the packed words."""
+    out = unpack_u32_device(packed, lead, h, w, scale)
+    return np.ascontiguousarray(out.cpu().numpy())

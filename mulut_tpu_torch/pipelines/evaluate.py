@@ -1,0 +1,197 @@
+"""Deployment-grade LUT-retrieval evaluation on the card.
+
+Torch twin of `mulut_tpu.pipelines.evaluate.LutEvaluator` for its kernel
+path: the packed cascade (`ops.tail_kernel.lut_cascade_packed`) over the
+expanded int8 tables, byte-identical to the reference NumPy engine
+(ref: sr/4_test_lut.py:263-306).  Replaces the reference's per-image
+process fan-out (ref: sr/4_test_lut.py:257-259) with the card's batch
+dimension.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.ensemble import prepare_expanded_luts
+from ..ops.tail_kernel import (
+    lut_cascade_packed,
+    supports_tail_kernel,
+    unpack_u32,
+)
+from ..utils.lut_io import load_luts
+
+
+def _resolve_device(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: LutEvaluator runs on the card; pass "
+            "device='cpu' for the plain torch path on the host")
+    return torch.device("cuda")
+
+
+class LutEvaluator:
+    """Holds the expanded LUTs on the device and runs the packed cascade.
+
+    `device=None` means the CUDA card (and raises where there is none);
+    `device="cpu"` runs every kernel's plain torch version.
+    """
+
+    #: Default cap on input pixels per dispatch (batch x Hb x Wb): the
+    #: stage-2 contraction buffers hold ~1 KB per input pixel.
+    MAX_BATCH_PIXELS = 8_000_000
+
+    def __init__(self, luts: dict, *, stages: int, modes: str, scale: int,
+                 interval: int = 4, bucket: int = 0, band: int = 0,
+                 max_batch_pixels: int | None = None, n_devices: int = 1,
+                 device=None):
+        if band:
+            raise NotImplementedError(
+                "band > 0 (row-slab streaming, lut_cascade_banded) is a "
+                "later slice of the port")
+        if n_devices > 1:
+            raise NotImplementedError(
+                "n_devices > 1 (batch sharding over several cards) is a "
+                "later slice of the port")
+        if not supports_tail_kernel(modes, scale):
+            raise NotImplementedError(
+                f"scale={scale}, modes={modes!r}: only the x4 packed "
+                "cascade is ported; other scales need lut_cascade_int, a "
+                "later slice of the port")
+        self.stages = stages
+        self.modes = modes
+        self.scale = scale
+        self.interval = interval
+        self.bucket = bucket
+        self.max_batch_pixels = max_batch_pixels or self.MAX_BATCH_PIXELS
+        self.device = _resolve_device(device)
+        # built on the device from the ~4 MB of source LUTs
+        self.luts = prepare_expanded_luts(luts, interval=interval,
+                                          device=self.device)
+
+    def _exec(self, chw, valid_hw=None) -> np.ndarray:
+        """One untiled dispatch -> host uint8 (..., H*scale, W*scale);
+        `valid_hw` as in `ops.ensemble.clamp_pad_region`."""
+        img = torch.from_numpy(np.ascontiguousarray(chw)).to(self.device)
+        packed = lut_cascade_packed(
+            self.luts, img, stages=self.stages, modes=self.modes,
+            scale=self.scale, interval=self.interval, valid_hw=valid_hw)
+        h, w = chw.shape[-2], chw.shape[-1]
+        return unpack_u32(packed, chw.shape[:-2], h, w, self.scale)
+
+    def _exec_bucketed(self, buf, hs, ws) -> np.ndarray:
+        """One bucketed dispatch -> host uint8 (..., Hb*scale, Wb*scale)."""
+        return self._exec(buf, valid_hw=(hs, ws))
+
+    @classmethod
+    def from_folder(cls, lut_folder: str, *, stages: int = 2,
+                    modes: str = "sdy", scale: int = 4, interval: int = 4,
+                    lut_name: str = "LUT_ft", bucket: int = 0, band: int = 0,
+                    n_devices: int = 1, device=None):
+        luts = load_luts(lut_folder, stages=stages, modes=modes, scale=scale,
+                         interval=interval, name=lut_name)
+        return cls(luts, stages=stages, modes=modes, scale=scale,
+                   interval=interval, bucket=bucket, band=band,
+                   n_devices=n_devices, device=device)
+
+    def upscale(self, img_lr: np.ndarray) -> np.ndarray:
+        """(H, W, C) or (H, W) uint8 LR -> upscaled uint8 SR (same rank).
+
+        With `bucket > 0`, images are evaluated in a (ceil to bucket)-sized
+        buffer with the pad region clamp-synchronized on the device, with
+        bit-identical output.
+        """
+        if img_lr.ndim == 2:
+            return self.upscale(img_lr[:, :, None])[:, :, 0]
+        chw = img_lr.transpose(2, 0, 1)
+        if not self.bucket:
+            self._check_untiled_size(*chw.shape[-2:], chw.shape[0])
+            out = self._exec(chw)
+            return out.transpose(1, 2, 0).astype(np.uint8)
+        h, w = chw.shape[-2:]
+        bucket = self.bucket
+        hb = -(-h // bucket) * bucket
+        wb = -(-w // bucket) * bucket
+        self._check_untiled_size(hb, wb, chw.shape[0])
+        buf = np.pad(chw, [(0, 0), (0, hb - h), (0, wb - w)], mode="edge")
+        out = self._exec_bucketed(
+            buf, np.int32(h), np.int32(w)
+        )[:, : h * self.scale, : w * self.scale]
+        return out.transpose(1, 2, 0).astype(np.uint8)
+
+    def upscale_batch(self, imgs_lr: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) uint8 -> (B, H*scale, W*scale, 3) uint8 (one
+        same-shape dispatch)."""
+        out = self._exec(imgs_lr.transpose(0, 3, 1, 2))
+        return out.transpose(0, 2, 3, 1).astype(np.uint8)
+
+    def upscale_many(self, imgs_lr: list) -> list:
+        """Mixed-size batch: ONE dispatch per bucket shape, with per-image
+        valid (h, w) vectors.  Bit-identical to per-image `upscale`.
+        Requires `bucket > 0`."""
+        if not self.bucket:
+            raise ValueError("upscale_many requires a bucket size")
+        bucket, scale = self.bucket, self.scale
+        groups: dict = {}
+        for i, img in enumerate(imgs_lr):
+            h, w = img.shape[:2]
+            hb = -(-h // bucket) * bucket
+            wb = -(-w // bucket) * bucket
+            groups.setdefault((hb, wb), []).append(i)
+        outs: list = [None] * len(imgs_lr)
+        for (hb, wb), idxs in groups.items():
+            self._check_untiled_size(hb, wb, 3)
+            # chunk so one dispatch never exceeds the pixel cap
+            per = max(1, self.max_batch_pixels // (hb * wb * 3))
+            for c0 in range(0, len(idxs), per):
+                chunk = idxs[c0: c0 + per]
+                batch = np.stack([
+                    np.pad(
+                        imgs_lr[i].transpose(2, 0, 1),
+                        [(0, 0),
+                         (0, hb - imgs_lr[i].shape[0]),
+                         (0, wb - imgs_lr[i].shape[1])],
+                        mode="edge",
+                    )
+                    for i in chunk
+                ])
+                hs = np.asarray(
+                    [imgs_lr[i].shape[0] for i in chunk], np.int32
+                )
+                ws = np.asarray(
+                    [imgs_lr[i].shape[1] for i in chunk], np.int32
+                )
+                out = self._dispatch_bucketed(batch, hs, ws)
+                for k, i in enumerate(chunk):
+                    h, w = imgs_lr[i].shape[:2]
+                    outs[i] = (
+                        out[k, :, : h * scale, : w * scale]
+                        .transpose(1, 2, 0).astype(np.uint8)
+                    )
+        return outs
+
+    def _dispatch_bucketed(self, batch: np.ndarray, hs: np.ndarray,
+                           ws: np.ndarray) -> np.ndarray:
+        """One bucketed dispatch on this evaluator's device."""
+        return self._exec_bucketed(batch, hs, ws)
+
+    def upscale_yuv_batch(self, imgs_rgb: np.ndarray) -> np.ndarray:
+        raise NotImplementedError(
+            "the device YUV pipeline (ops/resize.py chroma bicubic) is a "
+            "later slice of the port")
+
+    def upscale_yuv(self, img_rgb: np.ndarray) -> np.ndarray:
+        raise NotImplementedError(
+            "the device YUV pipeline (ops/resize.py chroma bicubic) is a "
+            "later slice of the port")
+
+    def _check_untiled_size(self, hb: int, wb: int, channels: int) -> None:
+        """Refuse to run the untiled cascade past the pixel cap."""
+        if hb * wb * channels > self.max_batch_pixels:
+            raise ValueError(
+                f"image bucket {hb}x{wb} exceeds the untiled device-safe "
+                f"size ({self.max_batch_pixels} px); split the batch or "
+                "raise max_batch_pixels explicitly"
+            )

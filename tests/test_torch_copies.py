@@ -1,0 +1,133 @@
+"""The port's copies of the JAX package's pure-Python/NumPy pieces, and its
+import hygiene.
+
+`mulut_tpu_torch` keeps its own copies of `ops/taps.py`, the NumPy table
+builders of `ops/simplex_tables.py` and `utils/lut_io.py` (importing them
+from `mulut_tpu` would load JAX).  Tolerance: exact equality throughout —
+these are integer tables, permutations and constants.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from mulut_tpu.ops import simplex_tables as jst
+from mulut_tpu.ops import taps as jtaps
+from mulut_tpu.utils import lut_io as jio
+from mulut_tpu_torch.ops import simplex_tables as tst
+from mulut_tpu_torch.ops import taps as ttaps
+from mulut_tpu_torch.utils import lut_io as tio
+
+REPO = Path(__file__).resolve().parents[1]
+MODES = "sdyeho"
+
+
+def test_taps_constants_equal():
+    assert ttaps.TAPS == jtaps.TAPS
+    assert ttaps.PAD == jtaps.PAD
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_taps_functions_equal(mode):
+    assert ttaps.mode_taps(mode) == jtaps.mode_taps(mode)
+    assert ttaps.mode_pad(mode) == jtaps.mode_pad(mode)
+    assert ttaps.fold_geometry(mode) == jtaps.fold_geometry(mode)
+    for r in range(-1, 6):
+        assert ttaps.rotated_taps(mode, r) == jtaps.rotated_taps(mode, r)
+
+
+@pytest.mark.parametrize("up", [1, 2, 3, 4])
+def test_lane_rotation_perm_equal(up):
+    for r in range(4):
+        np.testing.assert_array_equal(ttaps.lane_rotation_perm(up, r),
+                                      jtaps.lane_rotation_perm(up, r))
+
+
+def test_decision_tables_equal():
+    assert tst._BRANCHES == jst._BRANCHES
+    np.testing.assert_array_equal(tst.weight_coeffs(), jst.weight_coeffs())
+    for L in (5, 9, 17, 33):
+        np.testing.assert_array_equal(tst.corner_offsets(L),
+                                      jst.corner_offsets(L))
+    for geo_mode in "sde":
+        for _, sigma in jtaps.fold_geometry(geo_mode):
+            np.testing.assert_array_equal(tst._mode_mask_perm(sigma),
+                                          jst._mode_mask_perm(sigma))
+
+
+@pytest.mark.parametrize("interval,v", [(6, 1), (6, 16), (5, 4), (4, 1)])
+def test_expand_and_fold_lut_equal(interval, v):
+    L = 2 ** (8 - interval) + 1
+    rng = np.random.default_rng(interval * 10 + v)
+    lut = rng.integers(-127, 128, (L ** 4, v)).astype(np.int8)
+    np.testing.assert_array_equal(tst.expand_lut(lut, interval),
+                                  jst.expand_lut(lut, interval))
+    up = int(round(v ** 0.5))
+    perms = [jtaps.lane_rotation_perm(up, r) for r in range(4)]
+    for mode in "sde":
+        geo = jtaps.fold_geometry(mode)
+        for p in (None, perms):
+            np.testing.assert_array_equal(
+                tst.fold_lut(lut, geo, p, interval),
+                jst.fold_lut(lut, geo, p, interval))
+
+
+def test_lut_io_equal(tmp_path):
+    assert tio.lut_key(2, "y") == jio.lut_key(2, "y")
+    assert tio.parse_stage_key("s12_y") == jio.parse_stage_key("s12_y")
+    assert (tio.lut_filename("LUT_ft", 4, 4, 1, "s")
+            == jio.lut_filename("LUT_ft", 4, 4, 1, "s"))
+    rng = np.random.default_rng(1)
+    for s, v in ((1, 1), (2, 16)):
+        for m in "sdy":
+            tio.save_lut(str(tmp_path), rng.integers(-127, 128, (625, v)),
+                         name="LUT_ft", scale=4, interval=6, stage=s, mode=m)
+    kw = dict(stages=2, modes="sdy", scale=4, interval=6)
+    got = tio.load_luts(str(tmp_path), **kw)
+    want = jio.load_luts(str(tmp_path), **kw)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_import_loads_no_jax():
+    """Importing every module of the port leaves `jax` and `mulut_tpu`
+    (exactly, or as a `mulut_tpu.` prefix) out of sys.modules."""
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "mulut_tpu_torch").rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'mulut_tpu' or m.startswith('mulut_tpu.')]\n"
+        "print(bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_sources_import_no_jax():
+    files = list((REPO / "mulut_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 5
+    for f in files:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            if not s.startswith(("import ", "from ")):
+                continue
+            words = s.replace(",", " ").split()
+            assert "jax" not in words and not any(
+                w.startswith("jax.") for w in words), (f, line)
+            assert "mulut_tpu" not in words and not any(
+                w.startswith("mulut_tpu.") for w in words), (f, line)

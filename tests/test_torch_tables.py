@@ -1,0 +1,103 @@
+"""The port's expanded-table build against `mulut_tpu`'s.
+
+`mulut_tpu_torch.ops.ensemble.prepare_expanded_luts` builds the formats the
+JAX evaluator's kernel path uses (`prepare_expanded_luts(shared_quad=True,
+corner16_modes="y", fold16_modes="sd", k128_stage1="sd", int8_stage1="y")`),
+on the host with NumPy (device=None) or with the torch twins on a device.
+Tolerance: exact byte equality — every format is a gather/permutation of
+the int8 source tables.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mulut_tpu.ops.ensemble import prepare_expanded_luts as jax_prepare
+from mulut_tpu_torch.ops import ensemble as tens
+from mulut_tpu_torch.ops import simplex_tables as tst
+
+KERNEL_FORMATS = dict(shared_quad=True, corner16_modes="y",
+                      fold16_modes="sd", k128_stage1="sd", int8_stage1="y")
+
+
+def _luts(interval, seed, dtype=np.int8):
+    L = 2 ** (8 - interval) + 1
+    rng = np.random.default_rng(seed)
+    return {
+        f"s{s}_{m}": rng.integers(-127, 128, (L ** 4, v)).astype(dtype)
+        for s, v in ((1, 1), (2, 16)) for m in "sdy"
+    }
+
+
+@pytest.fixture(scope="module")
+def interval4():
+    luts = _luts(4, 0)
+    return luts, jax_prepare(luts, interval=4, **KERNEL_FORMATS)
+
+
+def _assert_equal(got: dict, want: dict):
+    assert got.keys() == want.keys()
+    for k in want:
+        g = got[k].numpy() if isinstance(got[k], torch.Tensor) else got[k]
+        w = np.asarray(want[k])
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        assert np.array_equal(g, w), k
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+@pytest.mark.parametrize("src_dtype", [np.int8, np.int32])
+def test_tables_interval6(device, src_dtype):
+    luts = _luts(6, 5, src_dtype)
+    want = jax_prepare(luts, interval=6, **KERNEL_FORMATS)
+    _assert_equal(tens.prepare_expanded_luts(luts, interval=6,
+                                             device=device), want)
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_tables_interval4(interval4, device):
+    """The shipped 17**4 shape (85.5 MB folded stage-2 tables)."""
+    luts, want = interval4
+    got = tens.prepare_expanded_luts(luts, interval=4, device=device)
+    _assert_equal(got, want)
+    L4 = 17 ** 4
+    shapes = {k: tuple(t.shape) for k, t in got.items()}
+    assert shapes == {
+        "s1_s": (L4, 128), "s1_d": (L4, 128), "s1_y": (L4, 16),
+        "s2_s": (L4, 1024), "s2_d": (L4, 1024), "s2_y": (L4, 256),
+    }
+
+
+def test_tables_from_numpy(interval4):
+    _, want = interval4
+    got = tens.tables_from_numpy(want, "cpu")
+    assert all(isinstance(t, torch.Tensor) for t in got.values())
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("interval,v", [(6, 1), (6, 16), (5, 4)])
+def test_device_twins(interval, v):
+    """expand_lut_device / fold_lut_device == the NumPy builders."""
+    L = 2 ** (8 - interval) + 1
+    rng = np.random.default_rng(v)
+    lut = rng.integers(-127, 128, (L ** 4, v)).astype(np.int8)
+    t = torch.as_tensor(lut)
+    np.testing.assert_array_equal(tst.expand_lut_device(t, interval).numpy(),
+                                  tst.expand_lut(lut, interval))
+    from mulut_tpu_torch.ops.taps import fold_geometry, lane_rotation_perm
+
+    up = int(round(v ** 0.5))
+    perms = [lane_rotation_perm(up, r) for r in range(4)]
+    for mode in "sde":
+        geo = fold_geometry(mode)
+        for p in (None, perms):
+            np.testing.assert_array_equal(
+                tst.fold_lut_device(t, geo, p, interval).numpy(),
+                tst.fold_lut(lut, geo, p, interval))
+
+
+@pytest.mark.parametrize("key,v", [("s2_e", 16), ("s1_h", 1), ("s1_e", 1),
+                                   ("s2_o", 16)])
+def test_unported_formats_raise(key, v):
+    lut = np.zeros((5 ** 4, v), np.int8)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tens.prepare_expanded_luts({key: lut}, interval=6)
