@@ -22,7 +22,25 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  Phases:
      contraction, one `torch.einsum` over the gathered rows (a yardstick,
      never called by the port).
 
-Prints a `{"kernels": [...]}` line and ends with one
+Then net mode (`NetEvaluator(fast=True)`, the tap-MLP units run directly):
+
+  7. plain (mxu-arch) units, the shipped `_ftr2` weights (nf=128, depth 2,
+     x4 `sdy`; `artifacts/`), on the same batch: a recording run of
+     `upscale_batch` and `upscale_yuv_batch` keeps every window-kernel (K3)
+     call's inputs, and each call is held against its plain version at the
+     full shapes, raw accumulator and its own epilogue (inner / final /
+     final_pack); then both entry points with every launch counter set to
+     0 just before and read just after (2 K3 launches each), and a
+     135 x 240 crop of frame 0 on the card against the port's CPU path;
+  8. dense units (nf=64, depth 4, Kaiming-normal from NumPy seed 0), the
+     same checks for the dense ensemble kernel (K4), 2 launches;
+  9. timings with CUDA events per kernel call site: ms, bound (useful
+     flops over the bf16 tensor-core peak, or bytes over the memory rate),
+     plain version, and the same layer chain as cuBLAS bf16 matmuls (a
+     yardstick only); `upscale_batch` host ms and MPix/s per architecture;
+     a profile of the plain forward.
+
+Prints a `{"kernels": [...]}` line (K1-K4) and ends with one
 `{"ok": true, "device": {...}}` line.  Any failed phase raises.
 """
 
@@ -42,6 +60,26 @@ SOURCE_K1 = "mulut_tpu_torch/ops/csrc/fold_contract.cu"
 SOURCE_K2 = "mulut_tpu_torch/ops/csrc/tail_assemble.cu"
 REPLACES_K1 = "mulut_tpu/ops/tail_kernel.py:181"
 REPLACES_K2 = "mulut_tpu/ops/tail_kernel.py:546"
+SOURCE_K3 = "mulut_tpu_torch/ops/csrc/plain_window.cu"
+SOURCE_K4 = "mulut_tpu_torch/ops/csrc/dense_ensemble.cu"
+REPLACES_K3 = "mulut_tpu/ops/unit_kernel.py:1084"
+REPLACES_K4 = "mulut_tpu/ops/unit_kernel.py:1281"
+NET_WEIGHTS = "artifacts/mxu_distilled_x4sdy_nf128_d2_ftr2.npz"
+BF16_FLOPS_PER_MS = 989e9          # H100 SXM dense bf16 tensor cores
+#: Kernel vs plain version, per call: at most ACC_FRAC of the entries may
+#: differ; the mixed outputs by at most MIX_ABS greylevels, the raw
+#: accumulator (a sum of 4M rounded passes) by at most RAW_ABS.  Tensor
+#: cores sum in another order and precision than cuBLAS, which can flip a
+#: bf16 activation and with it one pass's round(127 * tanh) by 1-2
+#: (NVIDIA H100 80GB HBM3, this script's batch: 42 of 51 M raw entries
+#: off by 2-3, every mixed output within 1).
+ACC_FRAC, MIX_ABS, RAW_ABS = 1e-3, 2, 4
+#: Card vs CPU path on uint8 images: at least U8_EQUAL of the bytes equal,
+#: U8_NEAR within 2 greylevels, none off by more than U8_ABS.  One flipped
+#: stage-1 value moves nearby stage-2 outputs by up to ~5 greylevels
+#: (NVIDIA H100 80GB HBM3, this script's crop: 2 of 1.56 M bytes off by 5).
+U8_EQUAL, U8_NEAR, U8_ABS = 0.999, 0.9999, 8
+CROP_H, CROP_W = 135, 240
 
 
 def _random_luts(rng):
@@ -70,26 +108,27 @@ def _cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _record_calls(tk, run):
-    """Run `run()` with the two kernel wrappers wrapped so that every call's
-    arguments are kept; returns (k1_calls, k2_calls)."""
-    k1, k2 = [], []
-    orig_k1, orig_k2 = tk.gather_fold_contract, tk.tail_assemble
+def _record_calls(mod, names, run):
+    """Run `run()` with the kernel wrappers `mod.<name>` wrapped so that
+    every call's arguments are kept; returns, per name, a list of
+    (positional args, keyword args)."""
+    calls = {n: [] for n in names}
+    orig = {n: getattr(mod, n) for n in names}
 
-    def rec_k1(tab, base, wt, *, C, u):
-        k1.append((tab, base, wt, C, u))
-        return orig_k1(tab, base, wt, C=C, u=u)
+    def recorder(n):
+        def rec(*args, **kw):
+            calls[n].append((args, kw))
+            return orig[n](*args, **kw)
+        return rec
 
-    def rec_k2(folded, quads, **kw):
-        k2.append((folded, quads, kw))
-        return orig_k2(folded, quads, **kw)
-
-    tk.gather_fold_contract, tk.tail_assemble = rec_k1, rec_k2
+    for n in names:
+        setattr(mod, n, recorder(n))
     try:
         run()
     finally:
-        tk.gather_fold_contract, tk.tail_assemble = orig_k1, orig_k2
-    return k1, k2
+        for n in names:
+            setattr(mod, n, orig[n])
+    return [calls[n] for n in names]
 
 
 def _profile(torch, cascade, dev_ms: float, runs: int = 3, top: int = 15):
@@ -126,6 +165,281 @@ def _profile(torch, cascade, dev_ms: float, runs: int = 3, top: int = 15):
         print(f"profile, top {title} by device time per cascade:")
         for ms, n, name in sorted(rows, reverse=True)[:top]:
             print(f"  {ms:8.3f} ms  x{n:<4d} {name[:100]}")
+
+
+def _reset(*counters):
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+def _differ(torch, got, want, mix=None):
+    """|diff| of a kernel output against its plain version, in output
+    units (greylevels for the inner mix), as a float tensor."""
+    if got.dtype == torch.int32:
+        g, w = got.view(torch.uint8).float(), want.view(torch.uint8).float()
+    else:
+        g, w = got.float(), want.float()
+        if mix == "inner":
+            g, w = torch.round(g * 255), torch.round(w * 255)
+    return (g - w).abs()
+
+
+def _gate(what, d, max_abs):
+    """Share of differing entries and max |diff| against their gates, with
+    the count of entries by |diff|; returns the max."""
+    frac, err = (d > 0).float().mean().item(), d.max().item()
+    hist = {k: int((d == k).sum()) for k in range(1, int(err) + 1)}
+    print(f"{what}: {frac:.3e} of {d.numel()} entries differ (gate "
+          f"{ACC_FRAC:g}), max |diff| {err:g} (gate {max_abs:g}), "
+          f"count by |diff| {hist}")
+    if frac > ACC_FRAC or err > max_abs:
+        raise RuntimeError(f"{what} misses its gate")
+    return err
+
+
+def _u8_gate(what, got, ref):
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise RuntimeError(f"{what}: {got.shape} {got.dtype} vs {ref.shape} "
+                           f"{ref.dtype}")
+    d = np.abs(got.astype(np.int64) - ref)
+    eq, near = float((d == 0).mean()), float((d <= 2).mean())
+    hist = {k: int((d == k).sum()) for k in range(1, int(d.max()) + 1)}
+    print(f"{what}: {eq:.6f} of {d.size} bytes equal (gate {U8_EQUAL}), "
+          f"{near:.6f} within 2 (gate {U8_NEAR}), max |diff| {int(d.max())} "
+          f"(gate {U8_ABS}), count by |diff| {hist}")
+    if eq < U8_EQUAL or near < U8_NEAR or d.max() > U8_ABS:
+        raise RuntimeError(f"{what} misses its gate")
+
+
+def _k3_work(st_t, plane, kw):
+    """(useful flops, bytes) of one window-kernel call on an image of H
+    rows: per image site (the plane's pad band, computed and cropped, does
+    not count) and pass the K=4 head, the depth nf x nf layers and v output
+    lanes; the plane read once, the weights once, each image site's output
+    written once."""
+    from mulut_tpu_torch.ops.unit_kernel import window_offsets
+
+    D, M, nf, _ = st_t["hwt"].shape
+    P, _ = window_offsets(kw["modes"])
+    Wp, Hp, v = kw["width"], H + 2 * P, kw.get("v") or 16
+    bc, rest = divmod(plane.shape[0], Hp * Wp)
+    if rest:
+        raise RuntimeError(f"plane of {plane.shape[0]} is not B*C x {Hp} x "
+                           f"{Wp}")
+    n = bc * H * (Wp - 2 * P)
+    flops = n * 4 * M * (2 * nf * 4 + 2 * D * nf * nf + 2 * nf * v)
+    out_bytes = {"inner": 2, "final_pack": 16, "final_u8": 32}.get(
+        kw.get("mix"), 64)
+    w_bytes = sum(t.numel() * 2 for t in st_t.values())
+    return n, flops, plane.shape[0] * 2 + w_bytes + n * out_bytes
+
+
+def _k4_work(st_t, taps, kw):
+    """As `_k3_work` for one dense-kernel call: every tap-matrix row is an
+    image site."""
+    M, nf, _ = st_t["w1t"].shape
+    n, v = taps.shape[0], kw.get("v") or 16
+    flops = n * 4 * M * (2 * nf * 4 + 2 * nf * nf * (1 + 2 + 3 + 4)
+                         + 2 * 5 * nf * v)
+    w_bytes = sum(t.numel() * 2 for t in st_t.values())
+    return n, flops, taps.numel() * 2 + w_bytes + n * 16 * 4
+
+
+def _chain_ms(torch, n, M, nf, v, dense, depth):
+    """The same layer chain as cuBLAS bf16 matmuls (rotations stacked,
+    4n rows per mode; f32 tanh/round/accumulate): a yardstick of what a
+    library does with the shapes, never called by the port."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return (torch.rand(shape, generator=g, device=dev) - 0.5).to(bf)
+
+    t, w1, b1 = rnd(4 * n, 4), rnd(4, nf), rnd(nf)
+    ks = [nf * (l + 1) for l in range(4)] if dense else [nf] * depth
+    ws, bs = [rnd(k, nf) for k in ks], [rnd(nf) for _ in ks]
+    w6 = rnd(5 * nf if dense else nf, v)
+
+    def run():
+        acc = torch.zeros((n, v), device=dev)
+        for _ in range(M):
+            x = torch.relu(t @ w1 + b1)
+            for w, b in zip(ws, bs):
+                y = torch.relu(x @ w + b)
+                x = torch.cat([x, y], dim=1) if dense else y
+            o = torch.tanh((x @ w6).float()).view(4, n, v)
+            acc += torch.round(o * 127).sum(0)
+        return acc
+
+    ms = _cuda_ms(torch, run, 2)
+    del t, ws
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _net_mode(torch, tk, imgs):
+    """Phases 7-9; returns the K3 and K4 entries of the kernels line."""
+    from mulut_tpu_torch.models import srnet as sn
+    from mulut_tpu_torch.models.torch_import import load_params_npz
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
+
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    counters = (tk.LAUNCHES, uk.LAUNCHES)
+    crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
+    mpix = BATCH * H * SCALE * W * SCALE / 1e6
+    entries = {}
+    for arch in ("plain", "dense"):
+        # 7 / 8. the evaluator, its kernels against their plain versions
+        if arch == "plain":
+            params = load_params_npz(NET_WEIGHTS)
+            name, wrapper = "stage_ensemble_apply_w", uk.stage_ensemble_apply_w
+        else:
+            params = sn.init_srnets(np.random.default_rng(0), nf=64,
+                                    arch="dense", **cfg)
+            name, wrapper = "stage_ensemble_apply", uk.stage_ensemble_apply
+        plain_fn = getattr(uk, name + "_plain")
+        t0 = time.perf_counter()
+        ev = NetEvaluator(params, fast=True, **cfg)
+        torch.cuda.synchronize()
+        print(f"net {arch}: NetEvaluator(fast=True) built in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms; stage stacks "
+              + ", ".join(f"{k}{tuple(v.shape)}" for k, v in
+                          ev.stacked[1].items()))
+
+        def both():
+            ev.upscale_batch(imgs)
+            if arch == "plain":
+                ev.upscale_yuv_batch(imgs)
+
+        k3, k4 = _record_calls(
+            uk, ("stage_ensemble_apply_w", "stage_ensemble_apply"), both)
+        calls = [(*args, kw) for args, kw in (k3 if arch == "plain" else k4)]
+        want_n = 4 if arch == "plain" else 2
+        if len(calls) != want_n or len(k3) + len(k4) != want_n:
+            raise RuntimeError(f"net {arch}: recorded {len(k3)} K3 and "
+                               f"{len(k4)} K4 calls; expected {want_n} {name}")
+        sites = (["rgb s1 inner", "rgb s2 final", "yuv s1 inner",
+                  "yuv s2 final_pack"] if arch == "plain"
+                 else ["rgb s1", "rgb s2"])
+        err = 0.0
+        for site, (st, x, kw) in zip(sites, calls):
+            kinds = [None] + ([kw["mix"]] if kw.get("mix") else [])
+            for mix in kinds:
+                kwm = dict(kw, mix=mix) if arch == "plain" else kw
+                got = wrapper(st, x, **kwm)
+                pkw = {k: v_ for k, v_ in kwm.items() if k != "v"}
+                want = plain_fn(st, x, **pkw)
+                torch.cuda.synchronize()
+                err = max(err, _gate(
+                    f"K{3 if arch == 'plain' else 4} {site} "
+                    f"{'raw acc' if mix is None else mix} "
+                    f"{tuple(got.shape)}", _differ(torch, got, want, mix),
+                    RAW_ABS if mix is None else MIX_ABS))
+        # the main path through the entry points, counted
+        _reset(*counters)
+        t0 = time.perf_counter()
+        out = ev.upscale_batch(imgs)
+        first_s = time.perf_counter() - t0
+        launches = dict(uk.LAUNCHES)
+        print(f"net {arch} upscale_batch: {imgs.shape} -> {out.shape}, "
+              f"launches {launches} + LUT {dict(tk.LAUNCHES)}")
+        if launches[name] != 2 or sum(launches.values()) != 2 \
+                or any(tk.LAUNCHES.values()):
+            raise RuntimeError(f"net {arch} upscale_batch launches "
+                               f"{launches}; expected 2 {name}")
+        if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or \
+                out.dtype != np.uint8:
+            raise RuntimeError(f"bad output {out.shape} {out.dtype}")
+        entries[arch] = {"launches": launches[name], "err": err}
+        if arch == "plain":
+            _reset(*counters)
+            yuv = ev.upscale_yuv_batch(imgs)
+            print(f"net plain upscale_yuv_batch: -> {yuv.shape}, launches "
+                  f"{dict(uk.LAUNCHES)}")
+            if dict(uk.LAUNCHES) != {name: 2, "stage_ensemble_apply": 0}:
+                raise RuntimeError("upscale_yuv_batch: expected 2 K3 "
+                                   "launches")
+            if yuv.shape != out.shape or yuv.dtype != np.uint8:
+                raise RuntimeError(f"bad YUV output {yuv.shape}")
+        # the card against the CPU path on a crop of frame 0
+        t0 = time.perf_counter()
+        ev_cpu = NetEvaluator(params, fast=True, device="cpu", **cfg)
+        _u8_gate(f"net {arch} {CROP_H}x{CROP_W} crop, card vs CPU path",
+                 ev.upscale(crop), ev_cpu.upscale(crop))
+        if arch == "plain":
+            _u8_gate(f"net plain {CROP_H}x{CROP_W} crop YUV, card vs CPU",
+                     ev.upscale_yuv(crop), ev_cpu.upscale_yuv(crop))
+        print(f"net {arch} CPU path: {time.perf_counter() - t0:.1f} s")
+
+        # 9. timings
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ev.upscale_batch(imgs)
+        batch_ms = (time.perf_counter() - t0) * 1e3 / reps
+        x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2).float() / 255
+
+        def forward():
+            return sn.srnets_predict_fast(ev.stacked, x, **cfg)
+
+        dev_ms = _cuda_ms(torch, forward, reps)
+        print(f"net {arch} upscale_batch (host clock, H2D + D2H included): "
+              f"{batch_ms:.3f} ms/batch = {mpix / batch_ms * 1e3:.2f} MPix/s "
+              f"(first call {first_s * 1e3:.1f} ms)")
+        print(f"net {arch} srnets_predict_fast on the card (CUDA events): "
+              f"{dev_ms:.3f} ms/batch = {mpix / dev_ms * 1e3:.2f} MPix/s")
+        if arch == "plain":
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                ev.upscale_yuv_batch(imgs)
+            yuv_ms = (time.perf_counter() - t0) * 1e3 / reps
+            print(f"net plain upscale_yuv_batch (host clock): {yuv_ms:.3f} "
+                  f"ms/batch = {mpix / yuv_ms * 1e3:.2f} MPix/s")
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        work = _k3_work if arch == "plain" else _k4_work
+        for site, (st, xin, kw) in zip(sites, calls):
+            n, flops, nbytes = work(st, xin, kw)
+            pkw = {k: v_ for k, v_ in kw.items() if k != "v"}
+            t = {
+                "ms": _cuda_ms(torch, lambda: wrapper(st, xin, **kw), 10),
+                "plain_ms": _cuda_ms(torch, lambda: plain_fn(st, xin, **pkw),
+                                     2),
+                "bound_ms": max(flops / BF16_FLOPS_PER_MS,
+                                nbytes / HBM_BYTES_PER_MS),
+            }
+            if arch == "plain":
+                D, M, nf, _ = st["hwt"].shape
+                rows, dense = xin.shape[0], False
+            else:
+                M, nf, _ = st["w1t"].shape
+                rows, D, dense = xin.shape[0], 4, True
+            t["cublas_chain_ms"] = _chain_ms(torch, rows, M, nf, kw.get("v"),
+                                             dense, D)
+            print(f"K{3 if arch == 'plain' else 4} {site}: image sites={n} "
+                  f"kernel rows={rows} "
+                  f"flops={flops:.4e} bytes={nbytes} "
+                  + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+            if site.startswith("rgb"):
+                for k in tot:
+                    tot[k] += t[k]
+        entries[arch].update(tot)
+        if arch == "plain":
+            _profile(torch, forward, dev_ms)
+        del ev, ev_cpu, k3, k4, calls, x
+        torch.cuda.empty_cache()
+
+    def entry(arch, kname, src, rep):
+        e = entries[arch]
+        return {"name": kname, "route": "cuda", "source": src,
+                "replaces": rep, "launches": e["launches"],
+                "max_abs_err": e["err"], "ms": e["ms"],
+                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                "bound_by": "operations", "library_ms": None}
+
+    return [entry("plain", "stage_ensemble_apply_w", SOURCE_K3, REPLACES_K3),
+            entry("dense", "stage_ensemble_apply", SOURCE_K4, REPLACES_K4)]
 
 
 def main() -> int:
@@ -183,13 +497,15 @@ def main() -> int:
             interval=INTERVAL)
 
     # 4. kernels against their plain versions, on the main path's inputs
-    k1_calls, k2_calls = _record_calls(tk, cascade)
+    k1_calls, k2_calls = _record_calls(
+        tk, ("gather_fold_contract", "tail_assemble"), cascade)
     sites = ["s1_s", "s1_d", "s2_s", "s2_d"] + [f"s2_y r{r}" for r in range(4)]
     if len(k1_calls) != len(sites) or len(k2_calls) != 1:
         raise RuntimeError(f"recorded {len(k1_calls)} contraction and "
                            f"{len(k2_calls)} tail calls; expected 8 and 1")
     k1_err = 0.0
-    for site, (tab, base, wt, C, u) in zip(sites, k1_calls):
+    for site, ((tab, base, wt), kw1) in zip(sites, k1_calls):
+        C, u = kw1["C"], kw1["u"]
         got = tk.gather_fold_contract(tab, base, wt, C=C, u=u)
         want = tk.gather_fold_contract_plain(tab, base, wt, C=C, u=u)
         torch.cuda.synchronize()
@@ -200,7 +516,7 @@ def main() -> int:
                                f"max abs err {err}")
         print(f"K1 {site}: (C={C}, u={u}, Np={base.shape[0]}) "
               f"byte-equal to plain")
-    folded, quads, kw = k2_calls[0]
+    (folded, quads), kw = k2_calls[0]
     got = tk.tail_assemble(folded, quads, **kw)
     bc = int(np.prod(kw["lead"]))
     wp = tk._pad128(kw["w"])
@@ -214,15 +530,17 @@ def main() -> int:
     print(f"K2 tail_assemble: out {tuple(got.shape)} byte-equal to plain")
 
     # 5. the main path through the entry point, counted
-    for k in tk.LAUNCHES:
-        tk.LAUNCHES[k] = 0
+    from mulut_tpu_torch.ops import unit_kernel as uk
+
+    _reset(tk.LAUNCHES, uk.LAUNCHES)
     t0 = time.perf_counter()
     out = ev.upscale_batch(imgs)
     first_s = time.perf_counter() - t0
     launches = dict(tk.LAUNCHES)
     print(f"upscale_batch: {imgs.shape} -> {out.shape} {out.dtype}, "
           f"launches {launches}")
-    if launches != {"gather_fold_contract": 8, "tail_assemble": 1}:
+    if launches != {"gather_fold_contract": 8, "tail_assemble": 1} or any(
+            uk.LAUNCHES.values()):
         raise RuntimeError(f"main path launches {launches}; expected 8 "
                            "gather_fold_contract and 1 tail_assemble")
     if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or out.dtype != np.uint8:
@@ -252,7 +570,8 @@ def main() -> int:
           f"ms/batch = {mpix / dev_ms * 1e3:.2f} MPix/s")
 
     k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    for site, (tab, base, wt, C, u) in zip(sites, k1_calls):
+    for site, ((tab, base, wt), kw1) in zip(sites, k1_calls):
+        C, u = kw1["C"], kw1["u"]
         Np = base.shape[0]
         rows = torch.unique(base).numel()
         nbytes = rows * C * u + 4 * Np + 4 * C * Np + 4 * u * Np
@@ -285,6 +604,10 @@ def main() -> int:
                                           for k, v in k2.items())
           + " library_ms=none (no single torch call computes it)")
     _profile(torch, cascade, dev_ms)
+    del ev, ev_cpu, k1_calls, k2_calls, folded, quads, kw
+    torch.cuda.empty_cache()
+
+    net_entries = _net_mode(torch, tk, imgs)
 
     print(json.dumps({"kernels": [
         {"name": "gather_fold_contract", "route": "cuda",
@@ -299,7 +622,7 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
-    ]}))
+    ] + net_entries}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

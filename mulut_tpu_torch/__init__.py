@@ -1,6 +1,8 @@
 """PyTorch/CUDA port of `mulut_tpu` for NVIDIA Hopper (H100).
 
 Slice 1: the LUT-retrieval deployment path (`pipelines.evaluate.LutEvaluator`
-over the packed x4 cascade, `ops.tail_kernel`), with hand-written CUDA kernels
-in `ops/csrc/`.  Imports torch and numpy only.
+over the packed x4 cascade, `ops.tail_kernel`).  Slice 2: net mode
+(`pipelines.evaluate.NetEvaluator`: `models.srnet` over the stage-ensemble
+kernels of `ops.unit_kernel`).  The kernels are hand-written CUDA in
+`ops/csrc/`.  Imports torch and numpy only.
 """

@@ -1,0 +1,72 @@
+"""MuLUT units as tap-MLPs over plain parameter dicts.
+
+Torch twin of `mulut_tpu.models.blocks` (ref: common/network.py:16-133):
+every conv after the receptive-field head is 1x1, so a unit is an MLP over
+the four sampled pixels.  Parameters are dicts of float32 arrays
+(`w1` (4, nf), `b1` (nf,), `w2`..`w{depth+1}`, `w6`, `b6`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.resize import full_f32_matmul
+
+
+def _kaiming_normal(rng: np.random.Generator, shape, fan_in: int):
+    """Torch nn.init.kaiming_normal_ default: gain sqrt(2), fan_in mode."""
+    std = float(np.sqrt(2.0 / fan_in))
+    return (rng.standard_normal(shape) * std).astype(np.float32)
+
+
+def init_mulut_unit(rng: np.random.Generator, *, nf: int = 64,
+                    upscale: int = 1, out_c: int = 1, dense: bool = True,
+                    depth: int = 4) -> dict:
+    """Parameters of one MuLUT unit as float32 NumPy arrays
+    (ref: common/network.py:62-105): Kaiming-normal weights from `rng`,
+    zero biases.  Same layout as `mulut_tpu.models.blocks.init_mulut_unit`;
+    the random stream is NumPy's, not JAX's."""
+    assert not (dense and depth != 4), "the dense-concat unit is depth-4"
+    out_dim = out_c * upscale * upscale
+    params = {
+        "w1": _kaiming_normal(rng, (4, nf), fan_in=4),
+        "b1": np.zeros((nf,), np.float32),
+    }
+    for i in range(2, 2 + depth):
+        w_in = (i - 1) * nf if dense else nf
+        params[f"w{i}"] = _kaiming_normal(rng, (w_in, nf), fan_in=w_in)
+        params[f"b{i}"] = np.zeros((nf,), np.float32)
+    head_in = (depth + 1) * nf if dense else nf
+    params["w6"] = _kaiming_normal(rng, (head_in, out_dim), fan_in=head_in)
+    params["b6"] = np.zeros((out_dim,), np.float32)
+    return params
+
+
+def unit_layout(params: dict) -> tuple:
+    """Infer (dense, hidden_layer_indices) from a unit's parameter shapes:
+    the unit is dense-concat iff the output head consumes the full concat
+    width ((depth+1)*nf)."""
+    nf = params["w1"].shape[1]
+    hidden = [i for i in range(2, 6) if f"w{i}" in params]
+    dense = params["w6"].shape[0] == (len(hidden) + 1) * nf and hidden
+    return bool(dense), hidden
+
+
+def apply_mulut_unit(params: dict, x4: torch.Tensor, *,
+                     dense: bool | None = None) -> torch.Tensor:
+    """(N, 4) tap pixels -> (N, out_c*upscale**2) in (-1, 1), float32.
+
+    relu head, dense-concat (or plain) 1x1 layers, linear output, tanh
+    (ref: common/network.py:96-105).  Matmuls run in full float32 (TF32
+    off), as the JAX unit runs at Precision.HIGHEST.
+    """
+    inferred, hidden = unit_layout(params)
+    if dense is None:
+        dense = inferred
+    with full_f32_matmul():
+        x = torch.relu(x4 @ params["w1"] + params["b1"])
+        for i in hidden:
+            feat = torch.relu(x @ params[f"w{i}"] + params[f"b{i}"])
+            x = torch.cat([x, feat], dim=-1) if dense else feat
+        return torch.tanh(x @ params["w6"] + params["b6"])

@@ -1,0 +1,224 @@
+"""SRNets cascades over tap-MLP units: the f32 forward, its band-tiled
+form, and the fast (bf16) forward through the stage-ensemble kernels.
+
+Torch twin of the net-mode parts of `mulut_tpu.models.srnet`.  A model is
+a params dict {"s{stage}_{mode}": unit params} (tensors, see
+`torch_import.params_from_numpy`) plus the static (modes, stages, scale).
+The four sampled pixels of every site are four shifted views of the padded
+image; the 4-rotation ensemble reads the same all-sides-padded image
+through rotated tap offsets and un-rotates the output lanes with a static
+permutation (ref: sr/1_train_model.py:26-45).
+
+`srnets_predict_fast` takes the JAX package's default kernel routes only:
+plain (mxu-arch) stacks run the window kernel K3 with the stage mix in its
+epilogue; dense stacks run the site-major ensemble kernel K4 with the mix
+in torch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import unit_kernel as uk
+from ..ops.ensemble import _pad_all
+from ..ops.taps import lane_rotation_perm, mode_pad, rotated_taps
+from .blocks import apply_mulut_unit, init_mulut_unit
+
+
+def init_srnets(rng: np.random.Generator, *, nf: int = 64, scale: int = 4,
+                modes: str = "sdy", stages: int = 2, arch: str = "dense",
+                depth: int | None = None) -> dict:
+    """Stage x mode registry of MuLUT units (ref: sr/model.py:15-31) as
+    float32 NumPy arrays, Kaiming-normal from `rng`.  arch "dense" is the
+    reference (depth-4 dense-concat); "mxu" is the plain MLP of depth
+    `depth` (default 2).  The last stage upscales by `scale`."""
+    if arch not in ("dense", "mxu"):
+        raise ValueError(f"unknown arch {arch!r}: expected 'dense' or 'mxu'")
+    dense = arch == "dense"
+    if depth is None:
+        depth = 4 if dense else 2
+    params = {}
+    for s in range(stages):
+        upscale = scale if s + 1 == stages else 1
+        for mode in modes:
+            params[f"s{s + 1}_{mode}"] = init_mulut_unit(
+                rng, nf=nf, upscale=upscale, dense=dense, depth=depth)
+    return params
+
+
+def unit_upscale(stage: int, stages: int, scale: int) -> int:
+    return scale if stage == stages else 1
+
+
+def _rotation_taps_batch(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """(B, C, H, W) -> (4, B, C, H, W, 4) tap stacks of the 4 rotations,
+    read from the edge-padded image through rotated tap offsets."""
+    pad = mode_pad(mode)
+    h, w = x.shape[-2], x.shape[-1]
+    xp = _pad_all(x, pad)
+    rots = []
+    for r in range(4):
+        planes = [xp[..., pad + dy: pad + dy + h, pad + dx: pad + dx + w]
+                  for dy, dx in rotated_taps(mode, r)]
+        rots.append(torch.stack(planes, dim=-1))
+    return torch.stack(rots, dim=0)
+
+
+def srnet_rotation_lanes(unit_params: dict, x: torch.Tensor, *, mode: str,
+                         upscale: int) -> torch.Tensor:
+    """All-4-rotation f32 unit outputs as un-rotated lanes:
+    (4, B, C, H, W, upscale**2) in (-1, 1) for an unpadded x."""
+    taps = _rotation_taps_batch(x, mode)
+    shape = taps.shape
+    out = apply_mulut_unit(unit_params, taps.reshape(-1, 4))
+    out = out.reshape(*shape[:-1], upscale * upscale)
+    if upscale > 1:
+        out = torch.stack([
+            out[r][..., torch.as_tensor(lane_rotation_perm(upscale, r),
+                                        device=x.device)]
+            for r in range(4)])
+    return out
+
+
+def _interleave_nchw(out: torch.Tensor, upscale: int) -> torch.Tensor:
+    """(B, C, h, w, up*up) -> (B, C, h*up, w*up)."""
+    B, C, h, w, _ = out.shape
+    out = out.reshape(B, C, h, w, upscale, upscale)
+    out = out.permute(0, 1, 2, 4, 3, 5)
+    return out.reshape(B, C, h * upscale, w * upscale)
+
+
+def srnets_predict(params: dict, x: torch.Tensor, *, modes: str, stages: int,
+                   scale: int) -> torch.Tensor:
+    """Float32 cascade forward, the JAX package's `phase="valid"` (ref:
+    sr/1_train_model.py:26-45): per rotation the unit output is scaled by
+    127 and rounded before accumulating; inner stages mix with avg 4M, bias
+    127, clip and renormalize (`uk.inner_mix`); the final stage mixes with
+    avg M, values in about [0, 255].  x: (B, C, H, W) float32 in [0, 1]."""
+    for s in range(stages):
+        stage = s + 1
+        upscale = unit_upscale(stage, stages, scale)
+        pred = 0.0
+        for mode in modes:
+            lanes = srnet_rotation_lanes(params[f"s{stage}_{mode}"], x,
+                                         mode=mode, upscale=upscale)
+            pred = pred + torch.round(lanes * 127.0).sum(dim=0)
+        if stage == stages:
+            x = _interleave_nchw(uk.final_mix(pred, len(modes)), upscale)
+        else:
+            x = uk.inner_mix(pred[..., 0], len(modes), dtype=torch.float32)
+    return x
+
+
+def srnets_predict_tiled(params: dict, x: torch.Tensor, *, modes: str,
+                         stages: int, scale: int, band: int = 32,
+                         halo: int = 4, axis: int = 2) -> torch.Tensor:
+    """Band-tiled `srnets_predict` for large images, identical to the
+    untiled forward: bands of `band` rows (axis 2) or columns (axis 3) are
+    evaluated in slabs with `halo` extra lines per side, clamped into the
+    image (a true image edge keeps the cascade's own padding), and the
+    kept band is written back; a last band that does not fit overlaps the
+    previous one with identical values."""
+    B, C = x.shape[:2]
+    H = x.shape[axis]
+    slab_h = band + 2 * halo
+    assert H >= slab_h, (H, band, halo)
+    n_bands = -(-H // band)
+    out = torch.zeros((B, C, x.shape[2] * scale, x.shape[3] * scale),
+                      dtype=torch.float32, device=x.device)
+    for i in range(n_bands):
+        kept0 = min(i * band, H - band)
+        start = min(max(kept0 - halo, 0), H - slab_h)
+        slab = x.narrow(axis, start, slab_h)
+        o = srnets_predict(params, slab, modes=modes, stages=stages,
+                           scale=scale)
+        o = o.narrow(axis, (kept0 - start) * scale, band * scale)
+        out.narrow(axis, kept0 * scale, band * scale).copy_(o)
+    return out
+
+
+def stack_srnets_for_fast(params: dict, *, modes: str, stages: int,
+                          scale: int, paired: bool = False) -> list:
+    """Per-stage bf16 stacks for `srnets_predict_fast`, in the layout the
+    kernels read: `uk.transpose_plain_stack` of `uk.stack_stage_params`,
+    made once here rather than on every forward."""
+    if paired:
+        raise NotImplementedError(
+            "rotation-paired stacks (kernel K9) are a later slice of the "
+            "port")
+    return [uk.transpose_plain_stack(uk.stack_stage_params(
+        params, stage=s + 1, modes=modes,
+        upscale=unit_upscale(s + 1, stages, scale))) for s in range(stages)]
+
+
+def _ensemble_taps(x: torch.Tensor, modes: str) -> torch.Tensor:
+    """(B, C, H, W) -> (N, 16*M) bf16 tap matrix, column blocks ordered
+    [mode][rotation][tap]."""
+    N = x.numel()
+    per_mode = [_rotation_taps_batch(x, m).reshape(4, N, 4) for m in modes]
+    t = torch.stack(per_mode, dim=0).permute(2, 0, 1, 3)   # (N, M, 4, 4)
+    return t.reshape(N, -1).to(torch.bfloat16)
+
+
+def _window_plane(x: torch.Tensor, modes: str):
+    """(B, C, H, W) bf16 -> (the flat plane of the image edge-padded by the
+    `window_offsets` halo P on all sides, (Hp, Wp, P)).  Site p's tap
+    (dy, dx) is plane[p + dy*Wp + dx]."""
+    P, _ = uk.window_offsets(modes)
+    xp = _pad_all(x, P)
+    return xp.reshape(-1), (xp.shape[-2], xp.shape[-1], P)
+
+
+def srnets_predict_fast(stacked_stages: list, x: torch.Tensor, *,
+                        modes: str, stages: int, scale: int,
+                        final_clip: bool | str = False) -> torch.Tensor:
+    """Fast (bf16) deployment forward, one kernel launch per stage.
+
+    stacked_stages: `stack_srnets_for_fast`.  x: (B, C, H, W) float in [0, 1] (cast to bf16).  Returns (B, C, H*s,
+    W*s): float32 round(acc / M) (final_clip False); its clip to [0, 255]
+    as bf16 (True); or, for plain x4 stacks with final_clip "pack", uint8
+    from the kernel's packed words.  Stage inputs and all stacks must be
+    on one device: CUDA launches the kernels, CPU runs their plain
+    versions.
+    """
+    M = len(modes)
+    B, C, H, W = x.shape
+    x = x.to(torch.bfloat16)
+    for s in range(stages):
+        stage = s + 1
+        upscale = unit_upscale(stage, stages, scale)
+        v = upscale * upscale
+        st = stacked_stages[s]
+        if "hwt" in st:
+            plane, (Hp, Wp, P) = _window_plane(x, modes)
+
+            def k3(mix, st=st, plane=plane, Wp=Wp, v=v):
+                return uk.stage_ensemble_apply_w(st, plane, modes=modes,
+                                                 width=Wp, mix=mix, v=v)
+
+            if stage < stages:
+                xb = k3("inner")[0]
+                # pad-band sites hold garbage; the next stage re-pads
+                x = xb.reshape(B, C, Hp, Wp)[:, :, P: P + H, P: P + W]
+                continue
+            if final_clip == "pack" and upscale == 4:
+                b = k3("final_pack").view(torch.uint8)       # (4, 4N)
+                b = b.reshape(upscale, B, C, Hp, Wp, upscale)
+                b = b[:, :, :, P: P + H, P: P + W, :]
+                o = b.permute(1, 2, 3, 0, 4, 5)
+                return o.reshape(B, C, H * upscale, W * upscale)
+            o = k3("final_u8" if final_clip else "final")[:v]
+            o = o.reshape(upscale, upscale, B, C, Hp, Wp)
+            o = o[:, :, :, :, P: P + H, P: P + W]
+            o = o.permute(2, 3, 4, 0, 5, 1)
+            return o.reshape(B, C, H * upscale, W * upscale)
+        acc = uk.stage_ensemble_apply(st, _ensemble_taps(x, modes),
+                                      n_modes=M, v=v)
+        if stage == stages:
+            # final_clip shapes only the plain epilogues, as in JAX
+            out = uk.final_mix(acc[:, :v], M)
+            out = out.reshape(B, C, H, W, upscale, upscale)
+            out = out.permute(0, 1, 2, 4, 3, 5)
+            return out.reshape(B, C, H * upscale, W * upscale)
+        x = uk.inner_mix(acc[:, 0], M).reshape(B, C, H, W)

@@ -1,0 +1,116 @@
+"""Load SRNets weights: reference PyTorch checkpoints, `.npz` registries,
+and the carry-over of NumPy parameter dicts into the port's tensors.
+
+Torch twin of `mulut_tpu.models.torch_import` (without its optimizer-state
+helpers, which belong to training).  The reference saves whole-model
+pickles (ref: sr/1_train_model.py:63-64) whose unpickling needs the classes
+`model.SRNets`, `common.network.*`; minimal stub classes are registered
+under those names so pickle can restore instance state, then the
+state_dict is read.  No reference code is imported or executed.
+
+State-dict layout (ref models/sr_x2sdy/Model_200000.pth):
+  s{stage}_{mode}.model.conv1.conv.{weight,bias}    head conv (nf,1,K,K)
+  s{stage}_{mode}.model.conv{2..5}.conv1.conv.*     dense 1x1 convs
+  s{stage}_{mode}.model.conv6.conv.*                output 1x1 conv
+The head conv's K*K (or 1x4) entries are the four tap weights in
+(a, b, c, d) order for every mode, so the convs flatten into the
+tap-MLP matrices of `models.blocks` with no numerical change.
+"""
+
+from __future__ import annotations
+
+import sys
+import types
+
+import numpy as np
+import torch
+
+
+def _install_stub_modules():
+    import torch.nn as nn
+
+    class _Stub(nn.Module):
+        pass
+
+    names = ["SRNets", "SRNet", "MuLUT", "MuLUTUnit", "MuLUTcUnit", "DenseConv",
+             "Conv", "ActConv", "DNNet", "DMNet", "DNNets", "DMNets"]
+    for mod_name in ["model", "common", "common.network"]:
+        if mod_name not in sys.modules:
+            sys.modules[mod_name] = types.ModuleType(mod_name)
+        for cls in names:
+            if not hasattr(sys.modules[mod_name], cls):
+                setattr(sys.modules[mod_name], cls, type(cls, (_Stub,), {}))
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """Load a reference .pth (whole-model pickle or state_dict) -> ndarray
+    dict."""
+    _install_stub_modules()
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    state = obj if isinstance(obj, dict) else obj.state_dict()
+    return {k: v.detach().numpy() for k, v in state.items()}
+
+
+def _unit_from_state(state: dict, prefix: str) -> dict:
+    """One MuLUT unit's tap-MLP params (NumPy) from torch conv tensors."""
+    params = {}
+    w1 = state[f"{prefix}.conv1.conv.weight"]  # (nf, 1, kh, kw)
+    params["w1"] = np.asarray(w1.reshape(w1.shape[0], -1).T)  # (4, nf)
+    params["b1"] = np.asarray(state[f"{prefix}.conv1.conv.bias"])
+    for i in range(2, 6):
+        dense_key = f"{prefix}.conv{i}.conv1.conv"
+        plain_key = f"{prefix}.conv{i}.conv"
+        key = dense_key if f"{dense_key}.weight" in state else plain_key
+        w = state[f"{key}.weight"]  # (out, in, 1, 1)
+        params[f"w{i}"] = np.asarray(w.reshape(w.shape[0], w.shape[1]).T)
+        params[f"b{i}"] = np.asarray(state[f"{key}.bias"])
+    w6 = state[f"{prefix}.conv6.conv.weight"]
+    params["w6"] = np.asarray(w6.reshape(w6.shape[0], w6.shape[1]).T)
+    params["b6"] = np.asarray(state[f"{prefix}.conv6.conv.bias"])
+    return params
+
+
+def srnets_params_from_torch(path: str, *, modes: str = "sdy",
+                             stages: int = 2) -> dict:
+    """Reference SRNets checkpoint -> {"s{stage}_{mode}": unit params}."""
+    state = load_torch_state_dict(path)
+    params = {}
+    for s in range(stages):
+        for mode in modes:
+            key = f"s{s + 1}_{mode}"
+            params[key] = _unit_from_state(state, f"{key}.model")
+    return params
+
+
+def save_params_npz(path: str, params: dict) -> None:
+    flat = {}
+    for unit_key, unit in params.items():
+        for name, arr in unit.items():
+            if isinstance(arr, torch.Tensor):
+                arr = arr.detach().cpu().numpy()
+            flat[f"{unit_key}/{name}"] = np.asarray(arr)
+    np.savez(path, **flat)
+
+
+def load_params_npz(path: str) -> dict:
+    """`save_params_npz` file (either package's) -> NumPy params dict."""
+    flat = np.load(path)
+    params: dict = {}
+    for k in flat.files:
+        unit_key, name = k.split("/")
+        params.setdefault(unit_key, {})[name] = np.asarray(flat[k])
+    return params
+
+
+def params_from_numpy(params: dict, device) -> dict:
+    """A params dict of NumPy arrays (the JAX package's layout, e.g. from
+    `load_params_npz` or `np.asarray` of its pytree) -> float32 tensors on
+    `device`, same keys and shapes.  Tensors are moved as they are."""
+    def conv(arr):
+        if isinstance(arr, torch.Tensor):
+            return arr.to(device=device, dtype=torch.float32)
+        return torch.as_tensor(np.array(arr, dtype=np.float32),
+                               device=device)
+
+    return {unit_key: {name: conv(arr) for name, arr in unit.items()}
+            for unit_key, unit in params.items()}

@@ -1,0 +1,326 @@
+// Plain-unit stage ensemble over the flat edge-padded plane (K3), sm_90a.
+//
+// Replaces the TPU kernel mulut_tpu/ops/unit_kernel.py:_plain_w_kernel
+// (reached through stage_ensemble_apply_w, rs schedule) and its epilogue
+// _apply_stage_mix_t.  For every site p of the padded plane and every pass
+// (mode m, rotation r), with x0 the 4 taps plane[p + off[m][r][k]]:
+//
+//   x1 = bf16(relu(x0 . w1[m] + b1[m]))                    head, K = 4
+//   xd = bf16(relu(x(d-1) . hw[d][m] + hb[d][m]))           depth layers
+//   acc[l] += rint(127 * tanh(x_D . w6[m][:, 16r + l] + b6[m][16r + l]))
+//
+// then the stage mix of acc (MIX below).  Products of bf16 values are
+// exact in float32 and are summed in float32, as the TPU's MXU dots with
+// preferred_element_type=f32; ReLU, bias, tanh and rounding are float32.
+// Rounding is half to even (rintf), never roundf.  Build without
+// --use_fast_math: tanhf, division and the inner mix's FMA must be IEEE.
+//
+// Bound: operations.  Per site and pass the hidden layers are 2*nf^2*D
+// flops (65,536 at nf=128, D=2) against 2 bytes of input; the tensor cores
+// bound it.  Design: a block owns 128 consecutive sites, one warp 16 of
+// them.  The hidden and output layers are warp-level tensor-core MMAs
+// (mma.sync m16n8k16, bf16 in, f32 accumulate).  A layer's f32 output
+// fragment is exactly the next layer's A fragment once packed to bf16, so
+// each warp's activations (16 sites x nf) never leave its registers, and
+// the layers of a warp need no block synchronisation.  The mode's weights
+// (D * nf * nf + 64 * nf bf16, 87 KB at nf=128, D=2) are staged in shared
+// memory once per mode and read by all 4 rotations; rows are padded by 8
+// bf16 so the B-fragment loads are free of bank conflicts.  The taps are
+// read straight from the plane (no per-tile window copies, which exist on
+// the TPU only because Mosaic cannot index freely); a tap outside [0, N)
+// reads 0, as the TPU's zero-padded windows do.  The head (K = 4) runs on
+// the CUDA cores in float32.  The inner stage's output head computes only
+// its first 8 lanes (v = 1; the other lanes are zero padding).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSites = 16 * kWarps;   // sites per block
+constexpr int kMaxModes = 6;
+constexpr int kHeadRows = 64;         // 4 rotations x 16 output lanes
+
+enum Mix { kNone = 0, kInner = 1, kFinal = 2, kFinalU8 = 3, kFinalPack = 4 };
+
+}  // namespace
+
+struct PlainParams {
+  const __nv_bfloat16* plane;  // (n,) edge-padded plane, flat
+  const __nv_bfloat16* w1t;    // (M, nf, 4)
+  const __nv_bfloat16* b1;     // (M, nf)
+  const __nv_bfloat16* hwt;    // (D, M, nf, nf): [d][m][out][in]
+  const __nv_bfloat16* hb;     // (D, M, nf)
+  const __nv_bfloat16* w6t;    // (M, 64, nf): row 16*r + lane
+  const __nv_bfloat16* b6;     // (M, 64)
+  void* out;                   // see plain_window()
+  long long n;
+  int modes, depth, v;
+  float inv_4m;                // float32(1 / (4M))
+  int offs[kMaxModes * 16];    // [mode][rotation][tap] plane offsets
+};
+
+namespace {
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t ld_b32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// rows x cols bf16 from global (row stride cols) to shared (row stride
+// ld), in 16-byte chunks.  cols % 8 == 0; both sides 16-byte aligned.
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int ld,
+                                          const __nv_bfloat16* src, int rows,
+                                          int cols) {
+  const int chunks = cols / 8;
+  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
+    const int r = i / chunks;
+    const int c = i - r * chunks;
+    *reinterpret_cast<int4*>(dst + r * ld + 8 * c) =
+        __ldg(reinterpret_cast<const int4*>(src + (long long)r * cols + 8 * c));
+  }
+}
+
+__device__ __forceinline__ float tap(const __nv_bfloat16* plane, long long n,
+                                     long long q) {
+  return (q >= 0 && q < n) ? __bfloat162float(plane[q]) : 0.f;
+}
+
+__device__ __forceinline__ float head(const float* w1, const float* b1, int f,
+                                      const float (&t)[4]) {
+  const float* w = w1 + 4 * f;
+  float s = t[0] * w[0];
+  s = s + t[1] * w[1];
+  s = s + t[2] * w[2];
+  s = s + t[3] * w[3];
+  return fmaxf(s + b1[f], 0.f);
+}
+
+__device__ __forceinline__ float final_value(float acc, int modes) {
+  return fminf(fmaxf(rintf(__fdiv_rn(acc, (float)modes)), 0.f), 255.f);
+}
+
+template <int NF>
+constexpr size_t smem_bytes(int depth) {
+  return (size_t)(depth * NF + kHeadRows) * (NF + 8) * 2 +
+         (size_t)(NF * 4 + NF + depth * NF + kHeadRows) * 4;
+}
+
+template <int NF, int MIX>
+__global__ void __launch_bounds__(kThreads)
+plain_window_kernel(const PlainParams p) {
+  constexpr int KT = NF / 16;  // k-tiles of an activation
+  constexpr int NT = NF / 8;   // n-tiles of a hidden layer's output
+  constexpr int LD = NF + 8;   // padded shared row (bf16)
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sW = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sW6 = sW + p.depth * NF * LD;
+  float* sW1 = reinterpret_cast<float*>(sW6 + kHeadRows * LD);  // [f][k]
+  float* sB1 = sW1 + NF * 4;
+  float* sHB = sB1 + NF;
+  float* sB6 = sHB + p.depth * NF;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+  const long long s_lo = (long long)blockIdx.x * kSites + warp * 16 + g;
+  const long long s_hi = s_lo + 8;
+  const int out_tiles = p.v > 8 ? 2 : 1;
+
+  __shared__ int sOff[kMaxModes * 16];
+  for (int i = threadIdx.x; i < p.modes * 16; i += kThreads)
+    sOff[i] = p.offs[i];
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+
+  for (int mi = 0; mi < p.modes; ++mi) {
+    __syncthreads();  // the previous mode's weights are no longer read
+    for (int d = 0; d < p.depth; ++d)
+      copy_rows(sW + d * NF * LD, LD,
+                p.hwt + ((long long)d * p.modes + mi) * NF * NF, NF, NF);
+    copy_rows(sW6, LD, p.w6t + (long long)mi * kHeadRows * NF, kHeadRows, NF);
+    for (int i = threadIdx.x; i < NF * 4; i += kThreads)
+      sW1[i] = __bfloat162float(p.w1t[(long long)mi * NF * 4 + i]);
+    for (int i = threadIdx.x; i < NF; i += kThreads)
+      sB1[i] = __bfloat162float(p.b1[mi * NF + i]);
+    for (int i = threadIdx.x; i < p.depth * NF; i += kThreads) {
+      const int d = i / NF;
+      sHB[i] = __bfloat162float(
+          p.hb[((long long)d * p.modes + mi) * NF + (i - d * NF)]);
+    }
+    for (int i = threadIdx.x; i < kHeadRows; i += kThreads)
+      sB6[i] = __bfloat162float(p.b6[mi * kHeadRows + i]);
+    __syncthreads();
+
+    for (int r = 0; r < 4; ++r) {
+      const int* off = sOff + (mi * 4 + r) * 4;
+      float tl[4], th[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        tl[k] = tap(p.plane, p.n, s_lo + off[k]);
+        th[k] = tap(p.plane, p.n, s_hi + off[k]);
+      }
+      // head -> A fragments: a[kt] covers features 16kt .. 16kt+15
+      uint32_t a[KT][4];
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int f = 16 * kt + 8 * h + 2 * t;
+          a[kt][2 * h] = pack_bf16(head(sW1, sB1, f, tl),
+                                   head(sW1, sB1, f + 1, tl));
+          a[kt][2 * h + 1] = pack_bf16(head(sW1, sB1, f, th),
+                                       head(sW1, sB1, f + 1, th));
+        }
+      }
+      for (int d = 0; d < p.depth; ++d) {
+        const __nv_bfloat16* w = sW + d * NF * LD;
+        float c[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const __nv_bfloat16* wr = w + (nt * 8 + g) * LD + kt * 16 + 2 * t;
+            mma_bf16(c[nt], a[kt], ld_b32(wr), ld_b32(wr + 8));
+          }
+        }
+        const float* hb = sHB + d * NF;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = nt * 8 + 2 * t;
+          const float b0 = hb[col], b1 = hb[col + 1];
+          a[nt / 2][(nt & 1) * 2] = pack_bf16(fmaxf(c[nt][0] + b0, 0.f),
+                                              fmaxf(c[nt][1] + b1, 0.f));
+          a[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(fmaxf(c[nt][2] + b0, 0.f),
+                                                  fmaxf(c[nt][3] + b1, 0.f));
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        if (nt >= out_tiles) break;
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt) {
+          const __nv_bfloat16* wr =
+              sW6 + (r * 16 + nt * 8 + g) * LD + kt * 16 + 2 * t;
+          mma_bf16(c, a[kt], ld_b32(wr), ld_b32(wr + 8));
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float o = tanhf(c[i] + sB6[r * 16 + nt * 8 + 2 * t + (i & 1)]);
+          acc[nt][i] += rintf(__fmul_rn(o, 127.f));
+        }
+      }
+    }
+  }
+
+  // epilogue; acc[nt][i] is site (i < 2 ? s_lo : s_hi), lane
+  // nt*8 + 2t + (i & 1)
+  const long long n = p.n;
+  if (MIX == kFinalPack) {
+    // lane 4*sy + sx: this thread holds sx = 2(t&1), 2(t&1)+1 of
+    // sy = 2nt + (t>>1); the partner thread t^1 holds the other two bytes
+    uint32_t* out = static_cast<uint32_t*>(p.out);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t q0 = (uint32_t)final_value(acc[nt][2 * h], p.modes);
+        const uint32_t q1 = (uint32_t)final_value(acc[nt][2 * h + 1], p.modes);
+        const uint32_t part = (q0 | (q1 << 8)) << (16 * (t & 1));
+        const uint32_t word = part | __shfl_xor_sync(0xffffffffu, part, 1);
+        const long long s = h ? s_hi : s_lo;
+        const int sy = 2 * nt + (t >> 1);
+        if ((t & 1) == 0 && s < n) out[sy * n + s] = word;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long s = i < 2 ? s_lo : s_hi;
+      const int l = nt * 8 + 2 * t + (i & 1);
+      if (s >= n) continue;
+      const float a = acc[nt][i];
+      if (MIX == kNone) {
+        static_cast<float*>(p.out)[l * n + s] = a;
+      } else if (MIX == kFinal) {
+        static_cast<float*>(p.out)[l * n + s] = rintf(__fdiv_rn(a, (float)p.modes));
+      } else if (MIX == kFinalU8) {
+        static_cast<__nv_bfloat16*>(p.out)[l * n + s] =
+            __float2bfloat16_rn(final_value(a, p.modes));
+      } else if (l == 0) {  // kInner: XLA's fma(acc, 1/(4M), 127)
+        const float m = fminf(fmaxf(rintf(__fmaf_rn(a, p.inv_4m, 127.f)), 0.f),
+                              255.f);
+        static_cast<__nv_bfloat16*>(p.out)[s] =
+            __float2bfloat16_rn(__fmul_rn(m, 1.f / 255.f));
+      }
+    }
+  }
+}
+
+template <int NF, int MIX>
+int launch(const PlainParams& p, cudaStream_t stream) {
+  const size_t smem = smem_bytes<NF>(p.depth);
+  auto kern = plain_window_kernel<NF, MIX>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (p.n + kSites - 1) / kSites;
+  kern<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int NF>
+int dispatch_mix(const PlainParams& p, int mix, cudaStream_t s) {
+  switch (mix) {
+    case kNone: return launch<NF, kNone>(p, s);
+    case kInner: return launch<NF, kInner>(p, s);
+    case kFinal: return launch<NF, kFinal>(p, s);
+    case kFinalU8: return launch<NF, kFinalU8>(p, s);
+    case kFinalPack: return launch<NF, kFinalPack>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// One stage of plain units over the flat plane.  out is (16, n) float32
+// for mix 0 (raw acc) and 2 (round(acc/M)); (16, n) bf16 for 3 (clip of
+// round(acc/M)); (1, n) bf16 for 1 (inner mix / 255); (4, n) uint32 for 4
+// (the x4 sub-pixels packed 4 per word, byte sx of word sy = lane
+// 4*sy+sx).  Weights as in PlainParams, contiguous; hwt and w6t 16-byte
+// aligned.  Returns a cudaError_t (0 on success).
+extern "C" int plain_window(const PlainParams* p, int nf, int mix,
+                            void* stream) {
+  if (p->n <= 0) return 0;
+  if (p->modes < 1 || p->modes > kMaxModes || p->depth < 0 || p->v < 1 ||
+      p->v > 16 || p->n > (1LL << 40))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nf) {
+    case 128: return dispatch_mix<128>(*p, mix, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,11 +1,16 @@
-"""Deployment-grade LUT-retrieval evaluation on the card.
+"""Deployment-grade evaluation on the card: LUT retrieval and net mode.
 
-Torch twin of `mulut_tpu.pipelines.evaluate.LutEvaluator` for its kernel
-path: the packed cascade (`ops.tail_kernel.lut_cascade_packed`) over the
-expanded int8 tables, byte-identical to the reference NumPy engine
-(ref: sr/4_test_lut.py:263-306).  Replaces the reference's per-image
-process fan-out (ref: sr/4_test_lut.py:257-259) with the card's batch
-dimension.
+Torch twins of `mulut_tpu.pipelines.evaluate`:
+
+- `LutEvaluator`, for its kernel path: the packed cascade
+  (`ops.tail_kernel.lut_cascade_packed`) over the expanded int8 tables,
+  byte-identical to the reference NumPy engine (ref:
+  sr/4_test_lut.py:263-306).  Replaces the reference's per-image process
+  fan-out (ref: sr/4_test_lut.py:257-259) with the card's batch dimension.
+- `NetEvaluator`, net mode: the trained tap-MLP units run directly (no LUT
+  caching), in float32 (`models.srnet.srnets_predict`) or, with
+  `fast=True`, in bf16 through one stage-ensemble kernel launch per stage
+  (`models.srnet.srnets_predict_fast`).
 """
 
 from __future__ import annotations
@@ -13,21 +18,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.srnet import (
+    srnets_predict,
+    srnets_predict_fast,
+    srnets_predict_tiled,
+    stack_srnets_for_fast,
+)
+from ..models.torch_import import (
+    load_params_npz,
+    params_from_numpy,
+    srnets_params_from_torch,
+)
 from ..ops.ensemble import prepare_expanded_luts
+from ..ops.resize import bicubic_upscale, full_f32_matmul
 from ..ops.tail_kernel import (
     lut_cascade_packed,
     supports_tail_kernel,
     unpack_u32,
 )
 from ..utils.lut_io import load_luts
+from ..utils.metrics import _YCBCR_O, _YCBCR_T
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, who: str = "LutEvaluator") -> torch.device:
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device: LutEvaluator runs on the card; pass "
+            f"no CUDA device: {who} runs on the card; pass "
             "device='cpu' for the plain torch path on the host")
     return torch.device("cuda")
 
@@ -195,3 +213,140 @@ class LutEvaluator:
                 f"size ({self.max_batch_pixels} px); split the batch or "
                 "raise max_batch_pixels explicitly"
             )
+
+
+class NetEvaluator:
+    """Deploys the trained MuLUT network directly (no LUT caching).
+
+    `fast=True` runs the tap-MLPs in bf16 through one stage-ensemble
+    kernel launch per stage: the window kernel K3 for plain (mxu-arch)
+    units, the dense ensemble kernel K4 for dense-concat units.
+    `fast=False` is the float32 forward (TF32 off), band-tiled above
+    `TILE_THRESHOLD` input pixels.  `device=None` means the CUDA card (and
+    raises where there is none); `device="cpu"` runs every kernel's plain
+    torch version.  `params` is the JAX package's params layout, as NumPy
+    arrays or tensors (`models.torch_import.params_from_numpy`).
+    """
+
+    #: LR pixel count above which the f32 forward is band-tiled.
+    TILE_THRESHOLD = 96 * 96
+    BAND = 16
+
+    def __init__(self, params: dict, *, stages: int, modes: str, scale: int,
+                 fast: bool = False, quant: bool | str = False,
+                 n_devices: int = 1, device=None):
+        if quant:
+            raise NotImplementedError(
+                "quant (W8A8 plain units, kernel K11) is a later slice of "
+                "the port")
+        if n_devices > 1:
+            raise NotImplementedError(
+                "n_devices > 1 (batch sharding over several cards) is a "
+                "later slice of the port")
+        self.stages = stages
+        self.modes = modes
+        self.scale = scale
+        self.fast = fast
+        self.device = _resolve_device(device, "NetEvaluator")
+        self.params = params_from_numpy(params, self.device)
+        self.stacked = None
+        #: final_clip of the fused-YUV luma run (plain stacks only): the
+        #: kernel epilogue clips and, at x4, packs the luma plane
+        self._luma_clip = None
+        if fast:
+            self.stacked = stack_srnets_for_fast(
+                self.params, modes=modes, stages=stages, scale=scale)
+            if any("hwt" in st for st in self.stacked):
+                self._luma_clip = "pack" if scale == 4 else True
+
+    @classmethod
+    def from_checkpoint(cls, path: str, *, stages: int = 2,
+                        modes: str = "sdy", scale: int = 4,
+                        fast: bool = False, quant: bool | str = False,
+                        device=None):
+        """From a `save_params_npz` registry (.npz) or a reference
+        PyTorch checkpoint (.pth)."""
+        if path.endswith(".npz"):
+            params = load_params_npz(path)
+        else:
+            params = srnets_params_from_torch(path, modes=modes,
+                                              stages=stages)
+        return cls(params, stages=stages, modes=modes, scale=scale,
+                   fast=fast, quant=quant, device=device)
+
+    def _run(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, H, W) float32 in [0, 1] -> float32 SR values."""
+        kw = dict(modes=self.modes, stages=self.stages, scale=self.scale)
+        if self.fast:
+            return srnets_predict_fast(self.stacked, x, **kw).float()
+        return srnets_predict(self.params, x, **kw)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """`_run`, band-tiled on the f32 path for large inputs (along
+        whichever spatial axis is long enough).  The fast path holds no
+        per-site activations in memory and never tiles."""
+        h, w = x.shape[-2:]
+        min_dim = self.BAND + 8
+        if (not self.fast and h * w > self.TILE_THRESHOLD
+                and max(h, w) >= min_dim):
+            return srnets_predict_tiled(
+                self.params, x, modes=self.modes, stages=self.stages,
+                scale=self.scale, band=self.BAND,
+                axis=2 if h >= min_dim else 3)
+        return self._run(x)
+
+    def _upload(self, imgs: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
+
+    def upscale(self, img_lr: np.ndarray) -> np.ndarray:
+        """(H, W, 3) uint8 LR -> (H*scale, W*scale, 3) uint8 SR."""
+        return self.upscale_batch(img_lr[None])[0]
+
+    def upscale_batch(self, imgs_lr: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) uint8 -> (B, H*scale, W*scale, 3) uint8 (one
+        same-shape dispatch; channels and batch ride the leading axes)."""
+        x = self._upload(imgs_lr).permute(0, 3, 1, 2).float() / 255.0
+        out = torch.round(torch.clamp(self._forward(x), 0, 255))
+        out = out.to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+        return out.cpu().numpy()
+
+    def _yuv(self, rgb: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) uint8 RGB on the device -> (B, H*s, W*s, 3) uint8:
+        luma through the cascade, chroma as two bicubic matmuls, the color
+        transforms as per-channel plane FMAs (ref: sr/Test.py:317-398)."""
+        dev = rgb.device
+        T = torch.as_tensor(_YCBCR_T, dtype=torch.float32, device=dev)
+        O = torch.as_tensor(_YCBCR_O, dtype=torch.float32, device=dev)
+        Ti = np.linalg.inv(_YCBCR_T)
+        with full_f32_matmul():
+            ycc = rgb.float() @ T.T + O
+        y = torch.clamp(torch.round(ycc[..., 0]), 0, 255)
+        # XLA's jitted `y / 255.0` is a multiply by float32(1/255)
+        x = y[:, None] * float(np.float32(1 / 255))
+        if self._luma_clip is not None:
+            y_sr = srnets_predict_fast(
+                self.stacked, x, modes=self.modes, stages=self.stages,
+                scale=self.scale, final_clip=self._luma_clip)[:, 0].float()
+        else:
+            y_sr = torch.clamp(torch.round(self._forward(x)[:, 0]), 0, 255)
+        cbcr = torch.clamp(torch.round(ycc[..., 1:]), 0, 255)
+        cbcr_sr = bicubic_upscale(cbcr.permute(0, 3, 1, 2), self.scale)
+        cb, cr = cbcr_sr[:, 0], cbcr_sr[:, 1]
+        chans = []
+        for o in range(3):
+            c = [float(np.float32(a)) for a in
+                 (Ti[o, 0], Ti[o, 1], Ti[o, 2], -(Ti[o] @ _YCBCR_O))]
+            plane = y_sr * c[0] + cb * c[1] + cr * c[2] + c[3]
+            chans.append(torch.clamp(torch.round(plane), 0, 255)
+                         .to(torch.uint8))
+        return torch.stack(chans, dim=-1)
+
+    def upscale_yuv_batch(self, imgs_rgb: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) uint8 RGB -> (B, H*s, W*s, 3) uint8: the device
+        YUV pipeline, one dispatch; the cascade sees one plane of three."""
+        return self._yuv(self._upload(imgs_rgb)).cpu().numpy()
+
+    def upscale_yuv(self, img_rgb: np.ndarray) -> np.ndarray:
+        """(H, W, 3) uint8 RGB -> (H*s, W*s, 3) uint8 (see
+        `upscale_yuv_batch`)."""
+        return self.upscale_yuv_batch(img_rgb[None])[0]

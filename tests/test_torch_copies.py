@@ -2,9 +2,11 @@
 import hygiene.
 
 `mulut_tpu_torch` keeps its own copies of `ops/taps.py`, the NumPy table
-builders of `ops/simplex_tables.py` and `utils/lut_io.py` (importing them
-from `mulut_tpu` would load JAX).  Tolerance: exact equality throughout —
-these are integer tables, permutations and constants.
+builders of `ops/simplex_tables.py`, `utils/lut_io.py`, the resize weight
+builders of `ops/resize.py`, `window_offsets` of `ops/unit_kernel.py` and
+the YCbCr constants of `utils/metrics.py` (importing them from `mulut_tpu`
+would load JAX).  Tolerance: exact equality throughout — these are integer
+tables, permutations and constants.
 """
 
 import os
@@ -15,12 +17,18 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from mulut_tpu.ops import resize as jresize
 from mulut_tpu.ops import simplex_tables as jst
 from mulut_tpu.ops import taps as jtaps
+from mulut_tpu.ops import unit_kernel as juk
 from mulut_tpu.utils import lut_io as jio
+from mulut_tpu.utils import metrics as jmetrics
+from mulut_tpu_torch.ops import resize as tresize
 from mulut_tpu_torch.ops import simplex_tables as tst
 from mulut_tpu_torch.ops import taps as ttaps
+from mulut_tpu_torch.ops import unit_kernel as tuk
 from mulut_tpu_torch.utils import lut_io as tio
+from mulut_tpu_torch.utils import metrics as tmetrics
 
 REPO = Path(__file__).resolve().parents[1]
 MODES = "sdyeho"
@@ -92,6 +100,28 @@ def test_lut_io_equal(tmp_path):
     assert got.keys() == want.keys()
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("modes", ["sdy", "s", "y", "sdeyho", "eh"])
+def test_window_offsets_equal(modes):
+    assert tuk.window_offsets(modes) == juk.window_offsets(modes)
+
+
+@pytest.mark.parametrize("n_in,n_out", [(270, 1080), (9, 36), (5, 10),
+                                        (12, 5)])
+def test_bicubic_matrix_equal(n_in, n_out):
+    np.testing.assert_array_equal(tresize._bicubic_matrix_np(n_in, n_out),
+                                  jresize._bicubic_matrix_np(n_in, n_out))
+    x = np.linspace(-3, 3, 61)
+    np.testing.assert_array_equal(tresize._keys_cubic(x),
+                                  jresize._keys_cubic(x))
+
+
+def test_ycbcr_constants_equal():
+    for name in ("_YCBCR_T", "_YCBCR_O"):
+        got, want = getattr(tmetrics, name), getattr(jmetrics, name)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 def test_import_loads_no_jax():
