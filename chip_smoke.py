@@ -40,7 +40,23 @@ Then net mode (`NetEvaluator(fast=True)`, the tap-MLP units run directly):
      yardstick only); `upscale_batch` host ms and MPix/s per architecture;
      a profile of the plain forward.
 
-Prints a `{"kernels": [...]}` line (K1-K4) and ends with one
+Then the W8A8 net mode (`NetEvaluator(quant=...)`, the units quantized to
+int8 at construction):
+
+ 10. for `quant=True` (integer requant) and `quant="f32"`, the shipped
+     `_ftr2` weights through `NetEvaluator.from_checkpoint`: the
+     quantization time; every int8-kernel (K11) call of `upscale_batch`
+     and `upscale_yuv_batch` on the batch held against its plain version
+     (raw accumulator, no entry may differ); both entry points with every
+     launch counter set to 0 just before and read just after (2 K11
+     launches each); the 135 x 240 crop on the card against the port's CPU
+     path; timings: K11 per call
+     site beside its bound (operations over the int8 tensor-core peak, or
+     bytes) and beside the same per-stage work as `torch._int_mm` products
+     and torch elementwise steps (a yardstick only), `upscale_batch` host ms
+     and MPix/s and `srnets_predict_fast` device ms.
+
+Prints a `{"kernels": [...]}` line (K1-K4, K11) and ends with one
 `{"ok": true, "device": {...}}` line.  Any failed phase raises.
 """
 
@@ -64,8 +80,13 @@ SOURCE_K3 = "mulut_tpu_torch/ops/csrc/plain_window.cu"
 SOURCE_K4 = "mulut_tpu_torch/ops/csrc/dense_ensemble.cu"
 REPLACES_K3 = "mulut_tpu/ops/unit_kernel.py:1084"
 REPLACES_K4 = "mulut_tpu/ops/unit_kernel.py:1281"
+SOURCE_K11 = "mulut_tpu_torch/ops/csrc/plain_w8a8.cu"
+#: the body quant=True runs; the same kernel replaces _plain_q_kernel
+#: (:527) and _plain_qw6_kernel (:564), all reached through :1281
+REPLACES_K11 = "mulut_tpu/ops/unit_kernel.py:599"
 NET_WEIGHTS = "artifacts/mxu_distilled_x4sdy_nf128_d2_ftr2.npz"
 BF16_FLOPS_PER_MS = 989e9          # H100 SXM dense bf16 tensor cores
+INT8_OPS_PER_MS = 1979e9           # H100 SXM dense int8 tensor cores
 #: Kernel vs plain version, per call: at most ACC_FRAC of the entries may
 #: differ; the mixed outputs by at most MIX_ABS greylevels, the raw
 #: accumulator (a sum of 4M rounded passes) by at most RAW_ABS.  Tensor
@@ -185,15 +206,15 @@ def _differ(torch, got, want, mix=None):
     return (g - w).abs()
 
 
-def _gate(what, d, max_abs):
+def _gate(what, d, max_abs, max_frac=ACC_FRAC):
     """Share of differing entries and max |diff| against their gates, with
     the count of entries by |diff|; returns the max."""
     frac, err = (d > 0).float().mean().item(), d.max().item()
     hist = {k: int((d == k).sum()) for k in range(1, int(err) + 1)}
     print(f"{what}: {frac:.3e} of {d.numel()} entries differ (gate "
-          f"{ACC_FRAC:g}), max |diff| {err:g} (gate {max_abs:g}), "
+          f"{max_frac:g}), max |diff| {err:g} (gate {max_abs:g}), "
           f"count by |diff| {hist}")
-    if frac > ACC_FRAC or err > max_abs:
+    if frac > max_frac or err > max_abs:
         raise RuntimeError(f"{what} misses its gate")
     return err
 
@@ -358,7 +379,8 @@ def _net_mode(torch, tk, imgs):
             yuv = ev.upscale_yuv_batch(imgs)
             print(f"net plain upscale_yuv_batch: -> {yuv.shape}, launches "
                   f"{dict(uk.LAUNCHES)}")
-            if dict(uk.LAUNCHES) != {name: 2, "stage_ensemble_apply": 0}:
+            if dict(uk.LAUNCHES) != {name: 2, "stage_ensemble_apply": 0,
+                                     "stage_ensemble_apply_q": 0}:
                 raise RuntimeError("upscale_yuv_batch: expected 2 K3 "
                                    "launches")
             if yuv.shape != out.shape or yuv.dtype != np.uint8:
@@ -440,6 +462,191 @@ def _net_mode(torch, tk, imgs):
 
     return [entry("plain", "stage_ensemble_apply_w", SOURCE_K3, REPLACES_K3),
             entry("dense", "stage_ensemble_apply", SOURCE_K4, REPLACES_K4)]
+
+
+def _k11_work(st, taps, kw):
+    """(image sites, useful int8 ops, bytes) of one K11 call: per site and
+    pass the K=4 head, the depth nf x nf layers and v output lanes; the tap
+    matrix and the weights read once, the (N, 16) float32 output written
+    once."""
+    M, nf, _ = st["w1t"].shape
+    D = st["hwqt"].shape[0]
+    n, v = taps.shape[0], kw.get("v") or 16
+    ops = n * 4 * M * (2 * nf * 4 + 2 * D * nf * nf + 2 * nf * v)
+    w_bytes = sum(t.numel() * t.element_size() for t in st.values())
+    return n, ops, taps.numel() * 2 + w_bytes + n * 16 * 4
+
+
+def _int8_chain_ms(torch, st, n, v, int_requant):
+    """The same per-stage work as library calls: per pass a bf16 head,
+    its int8 codes, `torch._int_mm` for each hidden layer and the output
+    head, the requant and the tanh epilogue as torch elementwise steps, on
+    n rows of random taps with this stack's weights.  A yardstick only,
+    never called by the port."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    M, D = st["w1t"].shape[0], st["hwqt"].shape[0]
+    t = torch.rand((n, 4), generator=g, device=dev).to(torch.bfloat16)
+    # _int_mm wants its second operand column-major: [out][in] transposed
+    ws = [[st["hwqt"][d, mi].t() for d in range(D)] for mi in range(M)]
+    w6 = [[st["w6qt"][mi, 16 * r: 16 * r + 16].t() for r in range(4)]
+          for mi in range(M)]
+
+    def requant(a, d, mi):
+        if int_requant:
+            ti = (a * st["hmq"][d, mi] + st["hhq"][d, mi]) >> st["hsq"][d, mi]
+            return torch.clamp(ti + st["hbi"][d, mi], 0, 127).to(torch.int8)
+        y = torch.addcmul(st["hbq"][d, mi], a.float(), st["hcq"][d, mi])
+        return torch.clamp(torch.round(torch.relu(y)), 0, 127).to(torch.int8)
+
+    def run():
+        acc = torch.zeros((n, v), device=dev)
+        for mi in range(M):
+            for r in range(4):
+                x = torch.relu(t @ st["w1t"][mi].t() + st["b1"][mi])
+                xq = torch.clamp(torch.round(x.float()), 0, 127).to(torch.int8)
+                for d in range(D):
+                    xq = requant(torch._int_mm(xq, ws[mi][d]), d, mi)
+                sl = slice(16 * r, 16 * r + v)
+                o = torch._int_mm(xq, w6[mi][r])[:, :v].float()
+                o = torch.addcmul(st["b6"][mi, sl], o, st["c6"][mi, sl])
+                acc += torch.round(torch.tanh(o) * 127)
+        return acc
+
+    ms = _cuda_ms(torch, run, 2)
+    del t
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _quant_mode(torch, tk, imgs):
+    """Phase 10; returns K11's entry of the kernels line."""
+    from mulut_tpu_torch.models import srnet as sn
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
+
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    counters = (tk.LAUNCHES, uk.LAUNCHES)
+    crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
+    mpix = BATCH * H * SCALE * W * SCALE / 1e6
+    sites = ["rgb s1", "rgb s2", "yuv s1", "yuv s2"]
+    want_launches = {"stage_ensemble_apply_w": 0, "stage_ensemble_apply": 0,
+                     "stage_ensemble_apply_q": 2}
+    entry = None
+    for quant in (True, "f32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = NetEvaluator.from_checkpoint(NET_WEIGHTS, quant=quant, **cfg)
+        torch.cuda.synchronize()
+        print(f"quant {quant!r}: NetEvaluator.from_checkpoint with W8A8 "
+              f"quantization in {(time.perf_counter() - t0) * 1e3:.1f} ms; "
+              "stage stacks " + ", ".join(
+                  f"{k}{tuple(v.shape)} {str(v.dtype)[6:]}"
+                  for k, v in ev.stacked[1].items()))
+
+        def both():
+            ev.upscale_batch(imgs)
+            ev.upscale_yuv_batch(imgs)
+
+        (calls,) = _record_calls(uk, ("stage_ensemble_apply_q",), both)
+        if len(calls) != len(sites):
+            raise RuntimeError(f"quant {quant!r}: recorded {len(calls)} K11 "
+                               f"calls; expected {len(sites)}")
+        err = 0.0
+        for site, ((st, taps), kw) in zip(sites, calls):
+            got = uk.stage_ensemble_apply_q(st, taps, **kw)
+            want = uk.stage_ensemble_apply_q_plain(st, taps,
+                                                   n_modes=kw["n_modes"])
+            torch.cuda.synchronize()
+            # no entry may differ: the int8 sums are exact, and the bf16
+            # head, requant and dequantizing FMAs round as the plain
+            # version does, with the same card's tanhf (NVIDIA H100 80GB
+            # HBM3, this batch: 0 of 66.4 M entries, per stage and form)
+            err = max(err, _gate(
+                f"K11 {quant!r} {site} raw acc {tuple(got.shape)}",
+                _differ(torch, got, want), 0, max_frac=0))
+        # the main path through the entry points, counted
+        for fn in (ev.upscale_batch, ev.upscale_yuv_batch):
+            _reset(*counters)
+            out = fn(imgs)
+            launches = dict(uk.LAUNCHES)
+            if fn == ev.upscale_batch:
+                k11_launches = launches["stage_ensemble_apply_q"]
+            print(f"quant {quant!r} {fn.__name__}: {imgs.shape} -> "
+                  f"{out.shape}, launches {launches} + LUT "
+                  f"{dict(tk.LAUNCHES)}")
+            if launches != want_launches or any(tk.LAUNCHES.values()):
+                raise RuntimeError(f"quant {quant!r} {fn.__name__} launches "
+                                   f"{launches}; expected {want_launches}")
+            if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or \
+                    out.dtype != np.uint8:
+                raise RuntimeError(f"bad output {out.shape} {out.dtype}")
+        # the card against the CPU path on a crop of frame 0
+        t0 = time.perf_counter()
+        ev_cpu = NetEvaluator.from_checkpoint(NET_WEIGHTS, quant=quant,
+                                              device="cpu", **cfg)
+        _u8_gate(f"quant {quant!r} {CROP_H}x{CROP_W} crop, card vs CPU path",
+                 ev.upscale(crop), ev_cpu.upscale(crop))
+        _u8_gate(f"quant {quant!r} {CROP_H}x{CROP_W} crop YUV, card vs CPU",
+                 ev.upscale_yuv(crop), ev_cpu.upscale_yuv(crop))
+        print(f"quant {quant!r} CPU path: {time.perf_counter() - t0:.1f} s")
+
+        # timings
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ev.upscale_batch(imgs)
+        batch_ms = (time.perf_counter() - t0) * 1e3 / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ev.upscale_yuv_batch(imgs)
+        yuv_ms = (time.perf_counter() - t0) * 1e3 / reps
+        x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2).float() / 255
+        dev_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
+            ev.stacked, x, **cfg), reps)
+        print(f"quant {quant!r} upscale_batch (host clock, H2D + D2H "
+              f"included): {batch_ms:.3f} ms/batch = "
+              f"{mpix / batch_ms * 1e3:.2f} MPix/s")
+        print(f"quant {quant!r} srnets_predict_fast on the card (CUDA "
+              f"events): {dev_ms:.3f} ms/batch = {mpix / dev_ms * 1e3:.2f} "
+              "MPix/s")
+        print(f"quant {quant!r} upscale_yuv_batch (host clock): "
+              f"{yuv_ms:.3f} ms/batch = {mpix / yuv_ms * 1e3:.2f} MPix/s")
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        chain = {}
+        for site, ((st, taps), kw) in zip(sites, calls):
+            n, ops, nbytes = _k11_work(st, taps, kw)
+            t = {
+                "ms": _cuda_ms(torch, lambda: uk.stage_ensemble_apply_q(
+                    st, taps, **kw), 10),
+                "plain_ms": _cuda_ms(torch, lambda: (
+                    uk.stage_ensemble_apply_q_plain(
+                        st, taps, n_modes=kw["n_modes"])), 2),
+                "bound_ms": max(ops / INT8_OPS_PER_MS,
+                                nbytes / HBM_BYTES_PER_MS),
+            }
+            v = kw.get("v") or 16
+            if (n, v) not in chain:
+                chain[n, v] = _int8_chain_ms(torch, st, n, v,
+                                             "hmq" in st)
+            t["int8_chain_ms"] = chain[n, v]
+            print(f"K11 {quant!r} {site}: image sites={n} ops={ops:.4e} "
+                  f"bytes={nbytes} "
+                  + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+            if site.startswith("rgb"):
+                for k in tot:
+                    tot[k] += t[k]
+        if quant is True:
+            entry = {"name": "stage_ensemble_apply_q", "route": "cuda",
+                     "source": SOURCE_K11, "replaces": REPLACES_K11,
+                     "launches": k11_launches, "max_abs_err": err,
+                     "ms": tot["ms"],
+                     "plain_ms": tot["plain_ms"],
+                     "bound_ms": tot["bound_ms"], "bound_by": "operations",
+                     "library_ms": None}
+        del ev, ev_cpu, calls, x
+        torch.cuda.empty_cache()
+    return entry
 
 
 def main() -> int:
@@ -608,6 +815,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     net_entries = _net_mode(torch, tk, imgs)
+    net_entries.append(_quant_mode(torch, tk, imgs))
 
     print(json.dumps({"kernels": [
         {"name": "gather_fold_contract", "route": "cuda",

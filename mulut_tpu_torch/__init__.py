@@ -3,6 +3,8 @@
 Slice 1: the LUT-retrieval deployment path (`pipelines.evaluate.LutEvaluator`
 over the packed x4 cascade, `ops.tail_kernel`).  Slice 2: net mode
 (`pipelines.evaluate.NetEvaluator`: `models.srnet` over the stage-ensemble
-kernels of `ops.unit_kernel`).  The kernels are hand-written CUDA in
-`ops/csrc/`.  Imports torch and numpy only.
+kernels of `ops.unit_kernel`).  Slice 3: W8A8 net mode
+(`NetEvaluator(quant=...)`: `ops.quant` and the int8 kernel).  The
+kernels are hand-written CUDA in `ops/csrc/`.  Imports torch and numpy
+only.
 """

@@ -11,8 +11,9 @@ permutation (ref: sr/1_train_model.py:26-45).
 
 `srnets_predict_fast` takes the JAX package's default kernel routes only:
 plain (mxu-arch) stacks run the window kernel K3 with the stage mix in its
-epilogue; dense stacks run the site-major ensemble kernel K4 with the mix
-in torch.
+epilogue; dense stacks run the site-major ensemble kernel K4, and W8A8
+quantized plain stacks (`ops.quant`) the int8 kernel K11, each over the
+tap matrix with the mix in torch.
 """
 
 from __future__ import annotations
@@ -175,12 +176,13 @@ def srnets_predict_fast(stacked_stages: list, x: torch.Tensor, *,
                         final_clip: bool | str = False) -> torch.Tensor:
     """Fast (bf16) deployment forward, one kernel launch per stage.
 
-    stacked_stages: `stack_srnets_for_fast`.  x: (B, C, H, W) float in [0, 1] (cast to bf16).  Returns (B, C, H*s,
-    W*s): float32 round(acc / M) (final_clip False); its clip to [0, 255]
-    as bf16 (True); or, for plain x4 stacks with final_clip "pack", uint8
-    from the kernel's packed words.  Stage inputs and all stacks must be
-    on one device: CUDA launches the kernels, CPU runs their plain
-    versions.
+    stacked_stages: `stack_srnets_for_fast`, or the W8A8 stacks of
+    `ops.quant.quantize_srnets_for_fast`.  x: (B, C, H, W) float in
+    [0, 1] (cast to bf16).  Returns (B, C, H*s, W*s): float32
+    round(acc / M) (final_clip False); for plain stacks, its clip to
+    [0, 255] as bf16 (True) or, at x4 with final_clip "pack", uint8 from
+    the kernel's packed words.  Stage inputs and all stacks must be on one
+    device: CUDA launches the kernels, CPU runs their plain versions.
     """
     M = len(modes)
     B, C, H, W = x.shape
@@ -216,7 +218,8 @@ def srnets_predict_fast(stacked_stages: list, x: torch.Tensor, *,
         acc = uk.stage_ensemble_apply(st, _ensemble_taps(x, modes),
                                       n_modes=M, v=v)
         if stage == stages:
-            # final_clip shapes only the plain epilogues, as in JAX
+            # final_clip shapes only the plain epilogues, as in JAX (dense
+            # and quantized stacks ignore it)
             out = uk.final_mix(acc[:, :v], M)
             out = out.reshape(B, C, H, W, upscale, upscale)
             out = out.permute(0, 1, 2, 4, 3, 5)

@@ -1,4 +1,4 @@
-"""Whole-stage tap-MLP ensembles of net mode, with their two CUDA kernels.
+"""Whole-stage tap-MLP ensembles of net mode, with their CUDA kernels.
 
 Torch twin of the net-mode default paths of `mulut_tpu.ops.unit_kernel`.
 One launch evaluates all 4*M passes (M modes x 4 rotations) of one cascade
@@ -14,12 +14,18 @@ the kernel.
 - K4 `stage_ensemble_apply` (csrc/dense_ensemble.cu) runs dense-concat
   stacks over an (N, 16*M) bf16 tap matrix and returns the raw (N, 16)
   accumulator; the mix runs in torch (`inner_mix`, `final_mix`).
+- K11 `stage_ensemble_apply_q` (csrc/plain_w8a8.cu) runs W8A8 quantized
+  plain stacks (`quant.py`) over the same tap matrix, with the same
+  output and torch mix as K4.
 
 Numerics are the JAX kernels': bf16 weights and activations, float32
 products summed in float32, float32 bias/ReLU/tanh, round half to even.
-K4's head is the JAX package's broadcast form with every product and
-partial sum rounded to bf16.  The inner stage mix is XLA's jitted form of
-`round(acc / (4M) + 127)`: one fused multiply-add by float32(1/(4M)).
+K4's and K11's head is the JAX package's broadcast form with every
+product and partial sum rounded to bf16.  K11's hidden and output
+products are exact int8 x int8 -> int32 sums, and its dequantizing
+multiply-adds are single-rounded, as XLA fuses them.  The inner stage mix
+is XLA's jitted form of `round(acc / (4M) + 127)`: one fused multiply-add
+by float32(1/(4M)).
 
 Each wrapper runs its plain torch version (`*_plain`) when given CPU
 tensors and launches its kernel when given CUDA tensors; it never falls
@@ -40,7 +46,8 @@ from .taps import lane_rotation_perm, mode_pad, rotated_taps
 
 #: Kernel launches per wrapper (CUDA launches only; the plain CPU versions
 #: do not count).  A run resets them to 0 to show which kernels it used.
-LAUNCHES = {"stage_ensemble_apply_w": 0, "stage_ensemble_apply": 0}
+LAUNCHES = {"stage_ensemble_apply_w": 0, "stage_ensemble_apply": 0,
+            "stage_ensemble_apply_q": 0}
 
 #: K3 epilogues (`_apply_stage_mix_t` of the JAX package): None = raw
 #: accumulator; "inner" = the inner-stage mix as one bf16 row;
@@ -52,6 +59,7 @@ _MAX_MODES = 6            # csrc/plain_window.cu kMaxModes
 _LANES = 16               # output lanes per rotation (csrc kHeadRows / 4)
 _PLAIN_NF = 128           # csrc/plain_window.cu instantiation (the artifacts)
 _DENSE_NF = 64            # csrc/dense_ensemble.cu instantiation (reference)
+_W8A8_NF = 128            # csrc/plain_w8a8.cu instantiation (the artifacts)
 _CHUNK = 1 << 19          # plain versions: sites per chunk
 _INV255 = float(np.float32(1 / 255))
 
@@ -438,16 +446,21 @@ def stage_ensemble_apply(stacked_t: dict, taps: torch.Tensor, *,
     dense `stack_stage_params` (bf16).  Column block (mi*4 + r)*4 .. +4
     holds pass (mi, r)'s 4 taps.  v: as in `stage_ensemble_apply_w`.
 
-    The paired (K9), quantized (K11) and site-major plain (K8) stacks that
-    share this JAX entry are not ported: they raise NotImplementedError.
+    A quantized stack (`quant.kernel_stack`, key "hwqt") goes to K11,
+    `stage_ensemble_apply_q`, as the JAX entry routes it.  The paired (K9)
+    and site-major plain (K8) stacks that share this JAX entry are not
+    ported: they raise NotImplementedError.
     """
     if "hwt" in stacked_t:
         raise NotImplementedError(
             "plain stacks run the window kernel (stage_ensemble_apply_w); "
             "the site-major plain schedules (K8) are not ported")
+    if "hwqt" in stacked_t:
+        return stage_ensemble_apply_q(stacked_t, taps, n_modes=n_modes, v=v)
     if "hwq" in stacked_t:
-        raise NotImplementedError(
-            "quantized W8A8 stacks (K11) are a later slice of the port")
+        raise ValueError(
+            "a quantized stack in the JAX package's layout (hwq); K11 "
+            "reads quant.kernel_stack's layout (hwqt)")
     keys = ["w1t", "b1", "w2t", "b2", "w3t", "b3", "w4t", "b4", "w5t", "b5",
             "w6t", "b6"]
     _check_stack(stacked_t, keys, "dense")
@@ -490,4 +503,169 @@ def stage_ensemble_apply(stacked_t: dict, taps: torch.Tensor, *,
     if err:
         raise RuntimeError(f"stage_ensemble_apply: CUDA error {err}")
     LAUNCHES["stage_ensemble_apply"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K11: W8A8 plain ensemble kernel
+# ---------------------------------------------------------------------------
+
+_Q8_KEYS = ("w1t", "b1", "hwqt", "w6qt", "c6", "b6")
+_RQ_INT = ("hmq", "hhq", "hsq", "hbi")     # the order Q8Params.rq takes
+_RQ_F32 = ("hcq", "hbq")
+
+
+def _q8_requant(a: torch.Tensor, st: dict, d: int, mi: int) -> torch.Tensor:
+    """Layer d's next int8 codes (as float32) from its exact sums `a`:
+    clip(((a * hmq + hhq) >> hsq) + hbi, 0, 127) in int32, or
+    clip(round(relu(fma(a, hcq, hbq))), 0, 127); the float64 form of the
+    multiply-add rounds once to float32, as XLA's fused one does."""
+    if "hmq" in st:
+        ti = a.to(torch.int32) * st["hmq"][d, mi] + st["hhq"][d, mi]
+        ti = torch.bitwise_right_shift(ti, st["hsq"][d, mi])
+        return torch.clamp(ti + st["hbi"][d, mi], 0, 127).to(torch.float32)
+    y = (a.to(torch.float64) * st["hcq"][d, mi].to(torch.float64)
+         + st["hbq"][d, mi].to(torch.float64)).to(torch.float32)
+    return torch.clamp(torch.round(torch.relu(y)), 0, 127)
+
+
+def stage_ensemble_apply_q_plain(st: dict, taps: torch.Tensor, *,
+                                 n_modes: int) -> torch.Tensor:
+    """Plain torch version of `stage_ensemble_apply_q` (same contract).
+    The int8 products run as float32 matmuls (TF32 off), which are exact:
+    every partial sum is an integer below 127 * 127 * nf < 2^24."""
+    from .quant import k32_feature_order
+
+    N = taps.shape[0]
+    nf = st["w1t"].shape[1]
+    inv = torch.as_tensor(np.argsort(k32_feature_order(nf)),
+                          device=taps.device)
+    hw = _f32(st["hwqt"][..., inv])           # (D, M, out, in), feature order
+    w6 = _f32(st["w6qt"][..., inv])           # (M, 64, in)
+    out = torch.empty((N, _LANES), device=taps.device)
+    with full_f32_matmul():
+        for c0 in range(0, N, _CHUNK):
+            tc = taps[c0: c0 + _CHUNK]
+            acc = torch.zeros((tc.shape[0], _LANES), device=taps.device)
+            for mi in range(n_modes):
+                for r in range(4):
+                    col = (mi * 4 + r) * 4
+                    x = _dense_head(tc[:, col: col + 4], st["w1t"][mi].T,
+                                    st["b1"][mi])
+                    x = torch.clamp(torch.round(_f32(x)), 0, 127)
+                    for d in range(hw.shape[0]):
+                        x = _q8_requant(x @ hw[d, mi].T, st, d, mi)
+                    sl = slice(_LANES * r, _LANES * (r + 1))
+                    o = ((x @ w6[mi, sl].T).to(torch.float64)
+                         * st["c6"][mi, sl].to(torch.float64)
+                         + st["b6"][mi, sl].to(torch.float64))
+                    acc += torch.round(torch.tanh(_f32(o)) * 127.0)
+            out[c0: c0 + tc.shape[0]] = acc
+    return out
+
+
+class _Q8Desc(ctypes.Structure):
+    """Mirror of `Q8Params` in csrc/plain_w8a8.cu."""
+
+    _fields_ = [
+        ("taps", ctypes.c_void_p),
+        ("w1t", ctypes.c_void_p),
+        ("b1", ctypes.c_void_p),
+        ("hwq", ctypes.c_void_p),
+        ("rq", ctypes.c_void_p * 4),
+        ("w6q", ctypes.c_void_p),
+        ("c6", ctypes.c_void_p),
+        ("b6", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("n", ctypes.c_longlong),
+        ("modes", ctypes.c_int),
+        ("depth", ctypes.c_int),
+        ("v", ctypes.c_int),
+    ]
+
+
+@functools.cache
+def _q8_fn():
+    fn = library("plain_w8a8").plain_w8a8
+    fn.argtypes = [ctypes.POINTER(_Q8Desc), ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_q8_stack(st: dict, n_modes: int):
+    """Keys, dtypes and shapes of a `quant.kernel_stack`; returns
+    (depth, nf, requant constant keys)."""
+    rq = _RQ_INT if "hmq" in st else _RQ_F32
+    want = {"w1t": torch.bfloat16, "b1": torch.bfloat16,
+            "hwqt": torch.int8, "w6qt": torch.int8, "c6": torch.float32,
+            "b6": torch.float32}
+    want.update({k: torch.int32 if rq is _RQ_INT else torch.float32
+                 for k in rq})
+    for k, dt in want.items():
+        if k not in st:
+            raise ValueError(f"quantized stack lacks {k!r}")
+        if st[k].dtype != dt:
+            raise ValueError(f"quantized stack: {k} must be {dt}, got "
+                             f"{st[k].dtype}")
+    M, nf, _ = st["w1t"].shape
+    D = st["hwqt"].shape[0]
+    shapes = {"w1t": (n_modes, nf, 4), "b1": (n_modes, nf),
+              "hwqt": (D, n_modes, nf, nf),
+              "w6qt": (n_modes, 4 * _LANES, nf),
+              "c6": (n_modes, 4 * _LANES), "b6": (n_modes, 4 * _LANES)}
+    shapes.update({k: (D, n_modes, nf) for k in rq})
+    for k, shape in shapes.items():
+        if tuple(st[k].shape) != shape:
+            raise ValueError(f"stack does not match {n_modes} modes: {k} is "
+                             f"{tuple(st[k].shape)}, expected {shape}")
+    return D, nf, rq
+
+
+def stage_ensemble_apply_q(st: dict, taps: torch.Tensor, *, n_modes: int,
+                           v: int | None = None) -> torch.Tensor:
+    """(N, 16*M) bf16 tap matrix -> (N, 16) float32 ensemble over a W8A8
+    quantized plain stack (`quant.kernel_stack`): per pass the bf16 head
+    and its int8 codes, `depth` exact int8 layers with the stack's requant
+    ("int" constants hmq.. or "f32" hcq/hbq), the int8 output head
+    dequantized by fma(o, c6, b6), and acc += round(127 * tanh(.)).
+    Columns and v as in `stage_ensemble_apply`.  The JAX twins are
+    `_plain_q_kernel`, `_plain_qw6_kernel` and `_plain_q2_kernel`.
+    """
+    D, nf, rq = _check_q8_stack(st, n_modes)
+    if (taps.dim() != 2 or taps.shape[1] != 16 * n_modes
+            or taps.dtype != torch.bfloat16):
+        raise ValueError(f"taps must be (N, {16 * n_modes}) bfloat16, got "
+                         f"{tuple(taps.shape)} {taps.dtype}")
+    ts = [st[k] for k in _Q8_KEYS + rq]
+    dev = _check_device(taps, *ts)
+    if dev.type == "cpu":
+        return stage_ensemble_apply_q_plain(st, taps, n_modes=n_modes)
+    if nf != _W8A8_NF:
+        raise NotImplementedError(
+            f"the CUDA W8A8 kernel (K11) is built for nf={_W8A8_NF}; got "
+            f"nf={nf}")
+    if not all(t.is_contiguous() for t in ts + [taps]):
+        raise ValueError("stage_ensemble_apply_q needs contiguous tensors")
+    if taps.data_ptr() % 8 or any(st[k].data_ptr() % 16
+                                  for k in ("hwqt", "w6qt")):
+        raise ValueError("taps must be 8-byte and hwqt, w6qt 16-byte "
+                         "aligned")
+    N = taps.shape[0]
+    out = torch.empty((N, _LANES), dtype=torch.float32, device=dev)
+    d = _Q8Desc()
+    d.taps, d.w1t, d.b1 = (taps.data_ptr(), st["w1t"].data_ptr(),
+                           st["b1"].data_ptr())
+    d.hwq, d.w6q = st["hwqt"].data_ptr(), st["w6qt"].data_ptr()
+    for i, k in enumerate(rq):
+        d.rq[i] = st[k].data_ptr()
+    d.c6, d.b6 = st["c6"].data_ptr(), st["b6"].data_ptr()
+    d.out, d.n, d.modes, d.depth = out.data_ptr(), N, n_modes, D
+    d.v = _LANES if v is None else v
+    with torch.cuda.device(dev):
+        err = _q8_fn()(ctypes.byref(d), nf, int(rq is _RQ_INT),
+                       torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"stage_ensemble_apply_q: CUDA error {err}")
+    LAUNCHES["stage_ensemble_apply_q"] += 1
     return out

@@ -10,7 +10,8 @@ Torch twins of `mulut_tpu.pipelines.evaluate`:
 - `NetEvaluator`, net mode: the trained tap-MLP units run directly (no LUT
   caching), in float32 (`models.srnet.srnets_predict`) or, with
   `fast=True`, in bf16 through one stage-ensemble kernel launch per stage
-  (`models.srnet.srnets_predict_fast`).
+  (`models.srnet.srnets_predict_fast`), or with `quant` as W8A8 int8
+  units (`ops.quant`) through the same forward.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..models.torch_import import (
     srnets_params_from_torch,
 )
 from ..ops.ensemble import prepare_expanded_luts
+from ..ops.quant import quantize_srnets_for_fast
 from ..ops.resize import bicubic_upscale, full_f32_matmul
 from ..ops.tail_kernel import (
     lut_cascade_packed,
@@ -221,7 +223,11 @@ class NetEvaluator:
     `fast=True` runs the tap-MLPs in bf16 through one stage-ensemble
     kernel launch per stage: the window kernel K3 for plain (mxu-arch)
     units, the dense ensemble kernel K4 for dense-concat units.
-    `fast=False` is the float32 forward (TF32 off), band-tiled above
+    `quant` (implies `fast`; plain units only, else ValueError) quantizes
+    the units to W8A8 at construction (`ops.quant`, calibrated from the
+    float32 params) and runs the int8 kernel K11 per stage: True or "int"
+    for the integer fixed-point requant, "f32" or "f32w6" for the float32
+    one.  `fast=False` is the float32 forward (TF32 off), band-tiled above
     `TILE_THRESHOLD` input pixels.  `device=None` means the CUDA card (and
     raises where there is none); `device="cpu"` runs every kernel's plain
     torch version.  `params` is the JAX package's params layout, as NumPy
@@ -235,10 +241,6 @@ class NetEvaluator:
     def __init__(self, params: dict, *, stages: int, modes: str, scale: int,
                  fast: bool = False, quant: bool | str = False,
                  n_devices: int = 1, device=None):
-        if quant:
-            raise NotImplementedError(
-                "quant (W8A8 plain units, kernel K11) is a later slice of "
-                "the port")
         if n_devices > 1:
             raise NotImplementedError(
                 "n_devices > 1 (batch sharding over several cards) is a "
@@ -246,14 +248,18 @@ class NetEvaluator:
         self.stages = stages
         self.modes = modes
         self.scale = scale
-        self.fast = fast
+        self.fast = fast = bool(fast or quant)
         self.device = _resolve_device(device, "NetEvaluator")
         self.params = params_from_numpy(params, self.device)
         self.stacked = None
         #: final_clip of the fused-YUV luma run (plain stacks only): the
         #: kernel epilogue clips and, at x4, packs the luma plane
         self._luma_clip = None
-        if fast:
+        if quant:
+            self.stacked = quantize_srnets_for_fast(
+                self.params, modes=modes, stages=stages, scale=scale,
+                requant=quant if isinstance(quant, str) else "int")
+        elif fast:
             self.stacked = stack_srnets_for_fast(
                 self.params, modes=modes, stages=stages, scale=scale)
             if any("hwt" in st for st in self.stacked):

@@ -3,10 +3,11 @@ import hygiene.
 
 `mulut_tpu_torch` keeps its own copies of `ops/taps.py`, the NumPy table
 builders of `ops/simplex_tables.py`, `utils/lut_io.py`, the resize weight
-builders of `ops/resize.py`, `window_offsets` of `ops/unit_kernel.py` and
-the YCbCr constants of `utils/metrics.py` (importing them from `mulut_tpu`
-would load JAX).  Tolerance: exact equality throughout — these are integer
-tables, permutations and constants.
+builders of `ops/resize.py`, `window_offsets` of `ops/unit_kernel.py`, the
+YCbCr constants of `utils/metrics.py` and the NumPy calibration and
+fixed-point code of `ops/quant.py` (importing them from `mulut_tpu` would
+load JAX).  Tolerance: exact equality throughout — these are integer
+tables, permutations, constants and the same NumPy arithmetic.
 """
 
 import os
@@ -17,12 +18,15 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from mulut_tpu.models.blocks import init_mulut_unit as jax_init_unit
+from mulut_tpu.ops import quant as jquant
 from mulut_tpu.ops import resize as jresize
 from mulut_tpu.ops import simplex_tables as jst
 from mulut_tpu.ops import taps as jtaps
 from mulut_tpu.ops import unit_kernel as juk
 from mulut_tpu.utils import lut_io as jio
 from mulut_tpu.utils import metrics as jmetrics
+from mulut_tpu_torch.ops import quant as tquant
 from mulut_tpu_torch.ops import resize as tresize
 from mulut_tpu_torch.ops import simplex_tables as tst
 from mulut_tpu_torch.ops import taps as ttaps
@@ -122,6 +126,34 @@ def test_ycbcr_constants_equal():
         got, want = getattr(tmetrics, name), getattr(jmetrics, name)
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [2, 5, 17])
+def test_quant_grid_equal(n):
+    got, want = tquant._grid4(n), jquant._grid4(n)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("nf", [16, 64])
+def test_quant_calibration_and_fixed_point_equal(nf):
+    import jax
+
+    unit = jax.tree_util.tree_map(
+        np.asarray, jax_init_unit(jax.random.PRNGKey(nf), nf=nf, upscale=4,
+                                  dense=False, depth=2))
+    got = tquant.calibrate_plain_unit(unit)
+    want = jquant.calibrate_plain_unit(unit)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    rng = np.random.default_rng(nf)
+    hcq = (rng.random((2, 3, nf)) * 10.0 ** rng.uniform(-6, 1, (2, 3, nf))
+           ).astype(np.float32)
+    hbq = (rng.standard_normal((2, 3, nf)) * 100).astype(np.float32)
+    for g, w in zip(tquant._fixed_point(hcq, hbq, nf),
+                    jquant._fixed_point(hcq, hbq, nf)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
 
 
 def test_import_loads_no_jax():

@@ -102,8 +102,7 @@ def test_predict_fast_equals_jax(arch, nf, final_clip):
     elif final_clip and arch == "mxu":
         assert got.dtype == torch.bfloat16
     _u8_close(got.float().numpy(), want.astype(np.float32))
-    assert tuk.LAUNCHES == {"stage_ensemble_apply_w": 0,
-                            "stage_ensemble_apply": 0}
+    assert not any(tuk.LAUNCHES.values())
 
 
 def test_stack_srnets_paired_raises():
@@ -199,8 +198,9 @@ def test_no_cpu_fallback(monkeypatch):
         NetEvaluator(_params("mxu", 8), fast=True, **CFG)
 
 
-@pytest.mark.parametrize("kw,what", [(dict(quant=True), "K11"),
-                                     (dict(n_devices=2), "n_devices")])
+@pytest.mark.parametrize("kw,what", [
+    # quant (K11) is ported; tests/test_torch_quant.py holds it
+    pytest.param(dict(n_devices=2), "n_devices", id="kw1-n_devices")])
 def test_later_slices_raise(kw, what):
     with pytest.raises(NotImplementedError, match=what):
         NetEvaluator(_params("mxu", 8), fast=True, device="cpu", **kw, **CFG)
