@@ -56,13 +56,33 @@ int8 at construction):
      and torch elementwise steps (a yardstick only), `upscale_batch` host ms
      and MPix/s and `srnets_predict_fast` device ms.
 
-Prints a `{"kernels": [...]}` line (K1-K4, K11) and ends with one
-`{"ok": true, "device": {...}}` line.  Any failed phase raises.
+Then the dense-unit routes of net mode (dense units nf=64, seed-0 weights
+as in phase 8, the same batch):
+
+ 11. for each of K5 (`models.srnet.DENSE_LAYOUT = "feature"`, window), K7
+     (`"feature"`, `PLAIN_WINDOW = False`) and K9 (MULUT_PAIRED_KERNEL=1):
+     `NetEvaluator(fast=True)`; every kernel call of `upscale_batch` held
+     against its plain version (raw accumulator and its own epilogue), and
+     its raw accumulator against K4's on the same stage input (no entry may
+     differ: one pass body); `upscale_batch` with every launch counter set
+     to 0 just before and read just after (2 launches of the route's
+     kernel, none of another), its bytes equal to the K4 route's; the
+     135 x 240 crop on the card against the port's CPU path; timings per
+     call site (ms, bound, plain version, cuBLAS chain yardstick), the
+     route's `srnets_predict_fast` device ms beside the K4 route's, and
+     `upscale_batch` host ms.  Then K10: `srnets_predict(bf16 params, bf16
+     x, unit_impl="pallas")`, each of its 6 unit calls against its plain
+     version, 6 launches counted, the crop card vs CPU, timings.
+
+Prints a `{"kernels": [...]}` line (K1-K5, K7, K9, K10, K11) and ends
+with one `{"ok": true, "device": {...}}` line.  Any failed phase raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -84,6 +104,16 @@ SOURCE_K11 = "mulut_tpu_torch/ops/csrc/plain_w8a8.cu"
 #: the body quant=True runs; the same kernel replaces _plain_q_kernel
 #: (:527) and _plain_qw6_kernel (:564), all reached through :1281
 REPLACES_K11 = "mulut_tpu/ops/unit_kernel.py:599"
+SOURCE_K5 = "mulut_tpu_torch/ops/csrc/dense_window.cu"
+SOURCE_K7 = "mulut_tpu_torch/ops/csrc/dense_feature.cu"
+SOURCE_K9 = "mulut_tpu_torch/ops/csrc/dense_ensemble.cu"
+SOURCE_K10 = "mulut_tpu_torch/ops/csrc/dense_unit.cu"
+#: the JAX bodies (def lines; K5 shares K3's entry :1084, K7 is reached
+#: through :1217, K9 through K4's :1281, K10 through :69)
+REPLACES_K5 = "mulut_tpu/ops/unit_kernel.py:972"
+REPLACES_K7 = "mulut_tpu/ops/unit_kernel.py:802"
+REPLACES_K9 = "mulut_tpu/ops/unit_kernel.py:232"
+REPLACES_K10 = "mulut_tpu/ops/unit_kernel.py:45"
 NET_WEIGHTS = "artifacts/mxu_distilled_x4sdy_nf128_d2_ftr2.npz"
 BF16_FLOPS_PER_MS = 989e9          # H100 SXM dense bf16 tensor cores
 INT8_OPS_PER_MS = 1979e9           # H100 SXM dense int8 tensor cores
@@ -101,6 +131,10 @@ ACC_FRAC, MIX_ABS, RAW_ABS = 1e-3, 2, 4
 #: (NVIDIA H100 80GB HBM3, this script's crop: 2 of 1.56 M bytes off by 5).
 U8_EQUAL, U8_NEAR, U8_ABS = 0.999, 0.9999, 8
 CROP_H, CROP_W = 135, 240
+#: K10 vs its plain version, in steps of 1/127 of its bf16 tanh outputs:
+#: at most ACC_FRAC of the entries may differ, by at most K10_ABS (a
+#: flipped bf16 activation or output rounding, as for K4).
+K10_ABS = 2
 
 
 def _random_luts(rng):
@@ -194,6 +228,12 @@ def _reset(*counters):
             c[k] = 0
 
 
+def _only(counter, name, count):
+    """The launch counts of a run that launched only `name`, `count`
+    times."""
+    return {k: count if k == name else 0 for k in counter}
+
+
 def _differ(torch, got, want, mix=None):
     """|diff| of a kernel output against its plain version, in output
     units (greylevels for the inner mix), as a float tensor."""
@@ -259,12 +299,9 @@ def _k3_work(st_t, plane, kw):
 def _k4_work(st_t, taps, kw):
     """As `_k3_work` for one dense-kernel call: every tap-matrix row is an
     image site."""
-    M, nf, _ = st_t["w1t"].shape
-    n, v = taps.shape[0], kw.get("v") or 16
-    flops = n * 4 * M * (2 * nf * 4 + 2 * nf * nf * (1 + 2 + 3 + 4)
-                         + 2 * 5 * nf * v)
-    w_bytes = sum(t.numel() * 2 for t in st_t.values())
-    return n, flops, taps.numel() * 2 + w_bytes + n * 16 * 4
+    n = taps.shape[0]
+    return (n, *_dense_work(st_t, n, taps.numel() * 2, kw.get("v") or 16,
+                            None))
 
 
 def _chain_ms(torch, n, M, nf, v, dense, depth):
@@ -379,8 +416,7 @@ def _net_mode(torch, tk, imgs):
             yuv = ev.upscale_yuv_batch(imgs)
             print(f"net plain upscale_yuv_batch: -> {yuv.shape}, launches "
                   f"{dict(uk.LAUNCHES)}")
-            if dict(uk.LAUNCHES) != {name: 2, "stage_ensemble_apply": 0,
-                                     "stage_ensemble_apply_q": 0}:
+            if dict(uk.LAUNCHES) != _only(uk.LAUNCHES, name, 2):
                 raise RuntimeError("upscale_yuv_batch: expected 2 K3 "
                                    "launches")
             if yuv.shape != out.shape or yuv.dtype != np.uint8:
@@ -530,8 +566,7 @@ def _quant_mode(torch, tk, imgs):
     crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
     mpix = BATCH * H * SCALE * W * SCALE / 1e6
     sites = ["rgb s1", "rgb s2", "yuv s1", "yuv s2"]
-    want_launches = {"stage_ensemble_apply_w": 0, "stage_ensemble_apply": 0,
-                     "stage_ensemble_apply_q": 2}
+    want_launches = _only(uk.LAUNCHES, "stage_ensemble_apply_q", 2)
     entry = None
     for quant in (True, "f32"):
         torch.cuda.synchronize()
@@ -647,6 +682,285 @@ def _quant_mode(torch, tk, imgs):
         del ev, ev_cpu, calls, x
         torch.cuda.empty_cache()
     return entry
+
+
+#: Phase 11's dense routes: kernel, launch key, the wrapper that reaches
+#: it, the module flags and environment that select it, source, and the
+#: JAX body it replaces.
+DENSE_ROUTES = (
+    ("K5", "stage_ensemble_apply_w_dense", "stage_ensemble_apply_w",
+     "feature", True, False, SOURCE_K5, REPLACES_K5),
+    ("K7", "stage_ensemble_apply_t", "stage_ensemble_apply_t",
+     "feature", False, False, SOURCE_K7, REPLACES_K7),
+    ("K9", "stage_ensemble_apply_pair", "stage_ensemble_apply",
+     "site", True, True, SOURCE_K9, REPLACES_K9),
+)
+
+
+@contextlib.contextmanager
+def _route_flags(sn, layout, window, paired):
+    """`models.srnet`'s DENSE_LAYOUT and PLAIN_WINDOW (read at each
+    forward) and MULUT_PAIRED_KERNEL (read when an evaluator is built),
+    restored on exit."""
+    old = sn.DENSE_LAYOUT, sn.PLAIN_WINDOW, os.environ.get(
+        "MULUT_PAIRED_KERNEL")
+    sn.DENSE_LAYOUT, sn.PLAIN_WINDOW = layout, window
+    os.environ["MULUT_PAIRED_KERNEL"] = "1" if paired else "0"
+    try:
+        yield
+    finally:
+        sn.DENSE_LAYOUT, sn.PLAIN_WINDOW = old[:2]
+        if old[2] is None:
+            os.environ.pop("MULUT_PAIRED_KERNEL")
+        else:
+            os.environ["MULUT_PAIRED_KERNEL"] = old[2]
+
+
+def _dense_work(st_t, n, src_bytes, v, mix):
+    """(useful flops, bytes) of one dense stage-ensemble call over n image
+    sites (a window call's pad band, computed and cropped, does not count):
+    per site and pass the K=4 head, the concat layers and v output lanes;
+    the tap source and the weights read once, each site's output written
+    once."""
+    M, nf = st_t["w1t"].shape[:2]
+    flops = n * 4 * M * (2 * nf * 4 + 2 * nf * nf * (1 + 2 + 3 + 4)
+                         + 2 * 5 * nf * v)
+    w_bytes = sum(t.numel() * 2 for t in st_t.values())
+    out_bytes = {"inner": 2, "final_pack": 16, "final_u8": 32}.get(mix, 64)
+    return flops, src_bytes + w_bytes + n * out_bytes
+
+
+def _dense_routes(torch, tk, imgs):
+    """Phase 11; returns the K5, K7, K9 and K10 entries of the kernels
+    line."""
+    from mulut_tpu_torch.models import srnet as sn
+    from mulut_tpu_torch.models.torch_import import params_from_numpy
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
+
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    counters = (tk.LAUNCHES, uk.LAUNCHES)
+    crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
+    mpix = BATCH * H * SCALE * W * SCALE / 1e6
+    n_img = BATCH * 3 * H * W
+    P, _ = uk.window_offsets(MODES)
+    params = sn.init_srnets(np.random.default_rng(0), nf=64, arch="dense",
+                            **cfg)
+    x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2).float() / 255
+    chain = {}
+
+    def chain_ms(n, M, v):
+        if (n, M, v) not in chain:
+            chain[n, M, v] = _chain_ms(torch, n, M, 64, v, True, 4)
+        return chain[n, M, v]
+
+    # the K4 route (the default) as every route's reference
+    ev4 = NetEvaluator(params, fast=True, **cfg)
+    ref = ev4.upscale_batch(imgs)
+    dev4_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
+        ev4.stacked, x, **cfg), 5)
+    print(f"dense K4 route srnets_predict_fast on the card (CUDA events): "
+          f"{dev4_ms:.3f} ms/batch")
+    entries = []
+    for (kn, key, wname, layout, window, paired, src,
+         rep) in DENSE_ROUTES:
+        wrapper = getattr(uk, wname)
+        plain_fn = getattr(uk, wname + "_plain")
+        with _route_flags(sn, layout, window, paired):
+            ev = NetEvaluator(params, fast=True, **cfg)
+            (calls,) = _record_calls(uk, (wname,),
+                                     lambda: ev.upscale_batch(imgs))
+            if len(calls) != 2:
+                raise RuntimeError(f"{kn}: recorded {len(calls)} {wname} "
+                                   "calls; expected 2")
+            err = 0.0
+            for s, ((st, src_t), kw) in enumerate(calls):
+                mix = kw.get("mix")
+                for kind in [None] + ([mix] if mix else []):
+                    kwm = dict(kw, mix=kind) if "mix" in kw else kw
+                    got = wrapper(st, src_t, **kwm)
+                    want = plain_fn(st, src_t, **{
+                        k: v_ for k, v_ in kwm.items() if k != "v"})
+                    torch.cuda.synchronize()
+                    err = max(err, _gate(
+                        f"{kn} s{s + 1} {'raw acc' if kind is None else kind}"
+                        f" {tuple(got.shape)} vs plain",
+                        _differ(torch, got, want, kind),
+                        RAW_ABS if kind is None else MIX_ABS))
+                    if kind is not None:
+                        continue
+                    # the raw accumulator against K4's on this stage's
+                    # input: one pass body, so no entry may differ
+                    if kn == "K5":
+                        Wp = kw["width"]
+                        Hp = src_t.numel() // (BATCH * 3 * Wp)
+                        img = src_t.view(BATCH, 3, Hp, Wp)[
+                            :, :, P: Hp - P, P: Wp - P]
+                        taps = sn._ensemble_taps(img, MODES)
+                        raw = got.view(16, BATCH, 3, Hp, Wp)[
+                            ..., P: Hp - P, P: Wp - P].reshape(16, -1).T
+                    elif kn == "K7":
+                        taps, raw = src_t.T.contiguous(), got.T
+                    else:
+                        taps, raw = src_t, got
+                    k4 = uk.stage_ensemble_apply(ev4.stacked[s], taps,
+                                                 n_modes=len(MODES),
+                                                 v=kw["v"])
+                    _gate(f"{kn} s{s + 1} raw acc vs K4 {tuple(k4.shape)}",
+                          (raw - k4).abs(), 0, max_frac=0)
+            # the main path through the entry point, counted
+            _reset(*counters)
+            t0 = time.perf_counter()
+            out = ev.upscale_batch(imgs)
+            first_s = time.perf_counter() - t0
+            launches = dict(uk.LAUNCHES)
+            print(f"{kn} route upscale_batch: {imgs.shape} -> {out.shape}, "
+                  f"launches {launches} + LUT {dict(tk.LAUNCHES)}")
+            if launches != _only(uk.LAUNCHES, key, 2) or any(
+                    tk.LAUNCHES.values()):
+                raise RuntimeError(f"{kn} route launches {launches}; "
+                                   f"expected 2 {key}")
+            n_diff = int((out != ref).sum())
+            print(f"{kn} route upscale_batch vs the K4 route: {n_diff} of "
+                  f"{out.size} bytes differ")
+            if out.shape != ref.shape or n_diff:
+                raise RuntimeError(f"{kn} route bytes differ from K4's")
+            t0 = time.perf_counter()
+            ev_cpu = NetEvaluator(params, fast=True, device="cpu", **cfg)
+            _u8_gate(f"{kn} route {CROP_H}x{CROP_W} crop, card vs CPU path",
+                     ev.upscale(crop), ev_cpu.upscale(crop))
+            print(f"{kn} route CPU path: {time.perf_counter() - t0:.1f} s")
+            # timings
+            reps = 5
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                ev.upscale_batch(imgs)
+            batch_ms = (time.perf_counter() - t0) * 1e3 / reps
+            dev_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
+                ev.stacked, x, **cfg), reps)
+            print(f"{kn} route upscale_batch (host clock, H2D + D2H "
+                  f"included): {batch_ms:.3f} ms/batch = "
+                  f"{mpix / batch_ms * 1e3:.2f} MPix/s (first call "
+                  f"{first_s * 1e3:.1f} ms)")
+            print(f"{kn} route srnets_predict_fast on the card (CUDA "
+                  f"events): {dev_ms:.3f} ms/batch = "
+                  f"{mpix / dev_ms * 1e3:.2f} MPix/s (K4 route "
+                  f"{dev4_ms:.3f})")
+            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+            for s, ((st, src_t), kw) in enumerate(calls):
+                v = kw["v"]
+                pkw = {k: v_ for k, v_ in kw.items() if k != "v"}
+                flops, nbytes = _dense_work(
+                    st, n_img, src_t.numel() * 2, v, kw.get("mix"))
+                t = {
+                    "ms": _cuda_ms(torch, lambda: wrapper(st, src_t, **kw),
+                                   10),
+                    "plain_ms": _cuda_ms(torch, lambda: plain_fn(
+                        st, src_t, **pkw), 2),
+                    "bound_ms": max(flops / BF16_FLOPS_PER_MS,
+                                    nbytes / HBM_BYTES_PER_MS),
+                    "cublas_chain_ms": chain_ms(n_img, len(MODES), v),
+                }
+                print(f"{kn} s{s + 1}: image sites={n_img} flops={flops:.4e} "
+                      f"bytes={nbytes} "
+                      + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+                for k in tot:
+                    tot[k] += t[k]
+            entries.append({
+                "name": key, "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches[key], "max_abs_err": err,
+                "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                "bound_ms": tot["bound_ms"], "bound_by": "operations",
+                "library_ms": None})
+            del ev, ev_cpu, calls
+            torch.cuda.empty_cache()
+    del ev4
+    torch.cuda.empty_cache()
+
+    # K10: srnets_predict on bf16 params and input, unit_impl="pallas"
+    def bf16_params(device):
+        return {k: {n: t.to(torch.bfloat16) for n, t in u.items()}
+                for k, u in params_from_numpy(params, device).items()}
+
+    pb, xb = bf16_params("cuda"), x.to(torch.bfloat16)
+
+    def forward():
+        return sn.srnets_predict(pb, xb, unit_impl="pallas", **cfg)
+
+    (calls,) = _record_calls(uk, ("fused_unit_apply",), forward)
+    sites = [f"s{s + 1}_{m}" for s in range(STAGES) for m in MODES]
+    if len(calls) != len(sites):
+        raise RuntimeError(f"K10: recorded {len(calls)} fused_unit_apply "
+                           f"calls; expected {len(sites)}")
+    err = 0.0
+    for site, ((pu, taps), kw) in zip(sites, calls):
+        got = uk.fused_unit_apply(pu, taps, **kw)
+        want = uk.fused_unit_apply_plain(pu, taps, **kw)
+        torch.cuda.synchronize()
+        # in steps of 1/127, the ensemble's rounding step
+        err = max(err, _gate(f"K10 {site} {tuple(got.shape)} vs plain, "
+                             "x127", (got.float() - want.float()).abs() * 127,
+                             K10_ABS))
+    _reset(*counters)
+    out = forward()
+    launches = dict(uk.LAUNCHES)
+    print(f"K10 srnets_predict(unit_impl='pallas'): {tuple(xb.shape)} -> "
+          f"{tuple(out.shape)} {out.dtype}, launches {launches}")
+    if launches != _only(uk.LAUNCHES, "fused_unit_apply", len(sites)) or \
+            any(tk.LAUNCHES.values()):
+        raise RuntimeError(f"K10 launches {launches}; expected "
+                           f"{len(sites)} fused_unit_apply")
+    if out.shape != (BATCH, 3, H * SCALE, W * SCALE) or \
+            not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"K10: bad output {tuple(out.shape)}")
+    xc = torch.from_numpy(crop).permute(2, 0, 1)[None].float() / 255
+
+    def u8(o):
+        o = torch.round(torch.clamp(o.float(), 0, 255)).to(torch.uint8)
+        return o[0].permute(1, 2, 0).cpu().numpy()
+
+    t0 = time.perf_counter()
+    card = sn.srnets_predict(pb, xc.cuda().to(torch.bfloat16),
+                             unit_impl="pallas", **cfg)
+    host = sn.srnets_predict(bf16_params("cpu"), xc.to(torch.bfloat16),
+                             unit_impl="pallas", **cfg)
+    _u8_gate(f"K10 {CROP_H}x{CROP_W} crop, card vs CPU path", u8(card),
+             u8(host))
+    print(f"K10 CPU path: {time.perf_counter() - t0:.1f} s")
+    dev_ms = _cuda_ms(torch, forward, 3)
+    print(f"K10 srnets_predict(unit_impl='pallas') on the card (CUDA "
+          f"events): {dev_ms:.3f} ms/batch = {mpix / dev_ms * 1e3:.2f} "
+          "MPix/s")
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for site, ((pu, taps), kw) in zip(sites, calls):
+        rows, v, nf = taps.shape[0], kw["out_dim"], pu["w1"].shape[1]
+        flops = rows * (2 * nf * 4 + 2 * nf * nf * (1 + 2 + 3 + 4)
+                        + 2 * 5 * nf * v)
+        nbytes = (taps.numel() * 2 + sum(t.numel() * 2 for t in pu.values())
+                  + rows * v * 2)
+        t = {
+            "ms": _cuda_ms(torch, lambda: uk.fused_unit_apply(pu, taps, **kw),
+                           10),
+            "plain_ms": _cuda_ms(torch, lambda: uk.fused_unit_apply_plain(
+                pu, taps, **kw), 2),
+            "bound_ms": max(flops / BF16_FLOPS_PER_MS,
+                            nbytes / HBM_BYTES_PER_MS),
+            "cublas_chain_ms": chain_ms(rows // 4, 1, v),
+        }
+        print(f"K10 {site}: rows={rows} flops={flops:.4e} bytes={nbytes} "
+              + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+        for k in tot:
+            tot[k] += t[k]
+    entries.append({
+        "name": "fused_unit_apply", "route": "cuda", "source": SOURCE_K10,
+        "replaces": REPLACES_K10,
+        "launches": launches["fused_unit_apply"], "max_abs_err": err,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"], "bound_by": "operations",
+        "library_ms": None})
+    del pb, xb, calls, out, x
+    torch.cuda.empty_cache()
+    return entries
 
 
 def main() -> int:
@@ -816,6 +1130,7 @@ def main() -> int:
 
     net_entries = _net_mode(torch, tk, imgs)
     net_entries.append(_quant_mode(torch, tk, imgs))
+    net_entries += _dense_routes(torch, tk, imgs)
 
     print(json.dumps({"kernels": [
         {"name": "gather_fold_contract", "route": "cuda",

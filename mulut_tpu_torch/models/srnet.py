@@ -9,14 +9,28 @@ image; the 4-rotation ensemble reads the same all-sides-padded image
 through rotated tap offsets and un-rotates the output lanes with a static
 permutation (ref: sr/1_train_model.py:26-45).
 
-`srnets_predict_fast` takes the JAX package's default kernel routes only:
-plain (mxu-arch) stacks run the window kernel K3 with the stage mix in its
-epilogue; dense stacks run the site-major ensemble kernel K4, and W8A8
-quantized plain stacks (`ops.quant`) the int8 kernel K11, each over the
-tap matrix with the mix in torch.
+`srnets_predict_fast` takes the JAX package's kernel routes, chosen by the
+same module flags (read at call time):
+
+- plain (mxu-arch) stacks run the window kernel K3 with the stage mix in
+  its epilogue (`PLAIN_WINDOW`; with it off they would take the tap-matrix
+  kernel K6, which is not ported and raises);
+- dense stacks run the site-major ensemble kernel K4 over the tap matrix
+  with the mix in torch (`DENSE_LAYOUT = "site"`, the default), or with
+  `DENSE_LAYOUT = "feature"` the dense window kernel K5 (`PLAIN_WINDOW`)
+  or the feature-major tap-matrix kernel K7, both with the mix in their
+  epilogue;
+- rotation-paired dense stacks (`stack_srnets_for_fast(paired=True)`) run
+  K9 and W8A8 quantized plain stacks (`ops.quant`) K11, both site-major
+  whatever `DENSE_LAYOUT` says.
+
+`srnets_predict(unit_impl="pallas")` runs each dense unit through the
+single-unit kernel K10.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -24,7 +38,18 @@ import torch
 from ..ops import unit_kernel as uk
 from ..ops.ensemble import _pad_all
 from ..ops.taps import lane_rotation_perm, mode_pad, rotated_taps
-from .blocks import apply_mulut_unit, init_mulut_unit
+from .blocks import apply_mulut_unit, init_mulut_unit, unit_layout
+
+
+#: Dense-stack layout of `srnets_predict_fast`: "site" (the (N, 16M) tap
+#: matrix, K4) or "feature" (K5 with `PLAIN_WINDOW`, else K7), as the JAX
+#: package's flag of the same name.
+DENSE_LAYOUT = "site"
+
+#: Feature-layout stages read their taps from the padded plane (K3, K5);
+#: MULUT_PLAIN_WINDOW=0 pins the tap-matrix kernels (K7; K6 for plain
+#: stacks, not ported), as in the JAX package.
+PLAIN_WINDOW = os.environ.get("MULUT_PLAIN_WINDOW", "1") != "0"
 
 
 def init_srnets(rng: np.random.Generator, *, nf: int = 64, scale: int = 4,
@@ -67,12 +92,22 @@ def _rotation_taps_batch(x: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 def srnet_rotation_lanes(unit_params: dict, x: torch.Tensor, *, mode: str,
-                         upscale: int) -> torch.Tensor:
-    """All-4-rotation f32 unit outputs as un-rotated lanes:
-    (4, B, C, H, W, upscale**2) in (-1, 1) for an unpadded x."""
+                         upscale: int, unit_impl: str = "xla") -> torch.Tensor:
+    """All-4-rotation unit outputs as un-rotated lanes:
+    (4, B, C, H, W, upscale**2) in (-1, 1) for an unpadded x.  unit_impl
+    "xla" runs `apply_mulut_unit`; "pallas" runs a dense unit through the
+    single-unit kernel K10 (bf16 params and x), and a plain unit through
+    `apply_mulut_unit` as the JAX package does."""
+    if unit_impl not in ("xla", "pallas"):
+        raise ValueError(f"unit_impl must be 'xla' or 'pallas', got "
+                         f"{unit_impl!r}")
     taps = _rotation_taps_batch(x, mode)
     shape = taps.shape
-    out = apply_mulut_unit(unit_params, taps.reshape(-1, 4))
+    if unit_impl == "pallas" and unit_layout(unit_params)[0]:
+        out = uk.fused_unit_apply(unit_params, taps.reshape(-1, 4),
+                                  out_dim=upscale * upscale)
+    else:
+        out = apply_mulut_unit(unit_params, taps.reshape(-1, 4))
     out = out.reshape(*shape[:-1], upscale * upscale)
     if upscale > 1:
         out = torch.stack([
@@ -91,22 +126,33 @@ def _interleave_nchw(out: torch.Tensor, upscale: int) -> torch.Tensor:
 
 
 def srnets_predict(params: dict, x: torch.Tensor, *, modes: str, stages: int,
-                   scale: int) -> torch.Tensor:
-    """Float32 cascade forward, the JAX package's `phase="valid"` (ref:
+                   scale: int, unit_impl: str = "xla") -> torch.Tensor:
+    """Cascade forward, the JAX package's `phase="valid"` (ref:
     sr/1_train_model.py:26-45): per rotation the unit output is scaled by
     127 and rounded before accumulating; inner stages mix with avg 4M, bias
-    127, clip and renormalize (`uk.inner_mix`); the final stage mixes with
-    avg M, values in about [0, 255].  x: (B, C, H, W) float32 in [0, 1]."""
+    127, clip and renormalize; the final stage mixes with avg M, values in
+    about [0, 255].  x: (B, C, H, W) in [0, 1].
+
+    Float32 x and params run the float32 forward (the inner mix in XLA's
+    jitted form, `uk.inner_mix`).  bf16 x and params (`unit_impl="pallas"`
+    on dense units: K10) keep the JAX package's dtype flow: every scale,
+    round, sum (over float32 partial sums) and mix is a bf16 op."""
+    bf16 = x.dtype == torch.bfloat16
     for s in range(stages):
         stage = s + 1
         upscale = unit_upscale(stage, stages, scale)
         pred = 0.0
         for mode in modes:
             lanes = srnet_rotation_lanes(params[f"s{stage}_{mode}"], x,
-                                         mode=mode, upscale=upscale)
+                                         mode=mode, upscale=upscale,
+                                         unit_impl=unit_impl)
             pred = pred + torch.round(lanes * 127.0).sum(dim=0)
         if stage == stages:
             x = _interleave_nchw(uk.final_mix(pred, len(modes)), upscale)
+        elif bf16:
+            mixed = torch.round(torch.clamp(pred / (4 * len(modes)) + 127.0,
+                                            0, 255))
+            x = mixed[..., 0] / 255.0
         else:
             x = uk.inner_mix(pred[..., 0], len(modes), dtype=torch.float32)
     return x
@@ -114,7 +160,8 @@ def srnets_predict(params: dict, x: torch.Tensor, *, modes: str, stages: int,
 
 def srnets_predict_tiled(params: dict, x: torch.Tensor, *, modes: str,
                          stages: int, scale: int, band: int = 32,
-                         halo: int = 4, axis: int = 2) -> torch.Tensor:
+                         halo: int = 4, axis: int = 2,
+                         unit_impl: str = "xla") -> torch.Tensor:
     """Band-tiled `srnets_predict` for large images, identical to the
     untiled forward: bands of `band` rows (axis 2) or columns (axis 3) are
     evaluated in slabs with `halo` extra lines per side, clamped into the
@@ -127,13 +174,13 @@ def srnets_predict_tiled(params: dict, x: torch.Tensor, *, modes: str,
     assert H >= slab_h, (H, band, halo)
     n_bands = -(-H // band)
     out = torch.zeros((B, C, x.shape[2] * scale, x.shape[3] * scale),
-                      dtype=torch.float32, device=x.device)
+                      dtype=x.dtype, device=x.device)
     for i in range(n_bands):
         kept0 = min(i * band, H - band)
         start = min(max(kept0 - halo, 0), H - slab_h)
         slab = x.narrow(axis, start, slab_h)
         o = srnets_predict(params, slab, modes=modes, stages=stages,
-                           scale=scale)
+                           scale=scale, unit_impl=unit_impl)
         o = o.narrow(axis, (kept0 - start) * scale, band * scale)
         out.narrow(axis, kept0 * scale, band * scale).copy_(o)
     return out
@@ -143,14 +190,15 @@ def stack_srnets_for_fast(params: dict, *, modes: str, stages: int,
                           scale: int, paired: bool = False) -> list:
     """Per-stage bf16 stacks for `srnets_predict_fast`, in the layout the
     kernels read: `uk.transpose_plain_stack` of `uk.stack_stage_params`,
-    made once here rather than on every forward."""
-    if paired:
-        raise NotImplementedError(
-            "rotation-paired stacks (kernel K9) are a later slice of the "
-            "port")
-    return [uk.transpose_plain_stack(uk.stack_stage_params(
+    made once here rather than on every forward; with `paired`, their
+    rotation-pair form (`uk.pair_stage_params`, kernel K9; dense units
+    only)."""
+    stacks = [uk.transpose_plain_stack(uk.stack_stage_params(
         params, stage=s + 1, modes=modes,
         upscale=unit_upscale(s + 1, stages, scale))) for s in range(stages)]
+    if paired:
+        stacks = [uk.pair_stage_params(st) for st in stacks]
+    return stacks
 
 
 def _ensemble_taps(x: torch.Tensor, modes: str) -> torch.Tensor:
@@ -160,6 +208,15 @@ def _ensemble_taps(x: torch.Tensor, modes: str) -> torch.Tensor:
     per_mode = [_rotation_taps_batch(x, m).reshape(4, N, 4) for m in modes]
     t = torch.stack(per_mode, dim=0).permute(2, 0, 1, 3)   # (N, M, 4, 4)
     return t.reshape(N, -1).to(torch.bfloat16)
+
+
+def _ensemble_taps_t(x: torch.Tensor, modes: str) -> torch.Tensor:
+    """(B, C, H, W) -> (16*M, N) bf16 feature-major tap matrix, rows
+    ordered [mode][rotation][tap] (the transpose of `_ensemble_taps`)."""
+    N = x.numel()
+    rows = [_rotation_taps_batch(x, m).permute(0, 5, 1, 2, 3, 4).reshape(
+        16, N) for m in modes]
+    return torch.cat(rows, dim=0).to(torch.bfloat16)
 
 
 def _window_plane(x: torch.Tensor, modes: str):
@@ -174,15 +231,19 @@ def _window_plane(x: torch.Tensor, modes: str):
 def srnets_predict_fast(stacked_stages: list, x: torch.Tensor, *,
                         modes: str, stages: int, scale: int,
                         final_clip: bool | str = False) -> torch.Tensor:
-    """Fast (bf16) deployment forward, one kernel launch per stage.
+    """Fast (bf16) deployment forward, one kernel launch per stage, routed
+    as the module docstring says.
 
     stacked_stages: `stack_srnets_for_fast`, or the W8A8 stacks of
     `ops.quant.quantize_srnets_for_fast`.  x: (B, C, H, W) float in
     [0, 1] (cast to bf16).  Returns (B, C, H*s, W*s): float32
-    round(acc / M) (final_clip False); for plain stacks, its clip to
-    [0, 255] as bf16 (True) or, at x4 with final_clip "pack", uint8 from
-    the kernel's packed words.  Stage inputs and all stacks must be on one
-    device: CUDA launches the kernels, CPU runs their plain versions.
+    round(acc / M) (final_clip False); on the routes with the mix in the
+    kernel epilogue (plain stacks; dense ones under DENSE_LAYOUT
+    "feature"), its clip to [0, 255] as bf16 (True) or, at x4 with
+    final_clip "pack", uint8 from the kernel's packed words; the other
+    routes ignore final_clip, as in JAX.  Stage inputs and all stacks must
+    be on one device: CUDA launches the kernels, CPU runs their plain
+    versions.
     """
     M = len(modes)
     B, C, H, W = x.shape
@@ -192,25 +253,42 @@ def srnets_predict_fast(stacked_stages: list, x: torch.Tensor, *,
         upscale = unit_upscale(stage, stages, scale)
         v = upscale * upscale
         st = stacked_stages[s]
-        if "hwt" in st:
-            plane, (Hp, Wp, P) = _window_plane(x, modes)
+        plain = "hwt" in st
+        # unpaired dense stacks may take the feature-layout kernels;
+        # paired and quantized stacks are site-major forms only
+        feature = plain or (DENSE_LAYOUT == "feature" and "w2t" in st
+                            and st["w2t"].shape[1] == st["w1t"].shape[1])
+        if feature:
+            if PLAIN_WINDOW:       # K3 / K5 over the padded plane
+                plane, (Hp, Wp, P) = _window_plane(x, modes)
 
-            def k3(mix, st=st, plane=plane, Wp=Wp, v=v):
-                return uk.stage_ensemble_apply_w(st, plane, modes=modes,
-                                                 width=Wp, mix=mix, v=v)
+                def run(mix, st=st, plane=plane, Wp=Wp, v=v):
+                    return uk.stage_ensemble_apply_w(
+                        st, plane, modes=modes, width=Wp, mix=mix, v=v)
+            elif plain:
+                raise NotImplementedError(
+                    "plain stacks with PLAIN_WINDOW off run the tap-matrix "
+                    "kernel K6, the next slice of the port")
+            else:                  # K7 over the feature-major tap matrix
+                taps_t = _ensemble_taps_t(x, modes)
+                Hp, Wp, P = H, W, 0
+
+                def run(mix, st=st, taps_t=taps_t, v=v):
+                    return uk.stage_ensemble_apply_t(
+                        st, taps_t, n_modes=M, mix=mix, v=v)
 
             if stage < stages:
-                xb = k3("inner")[0]
+                xb = run("inner")[0]
                 # pad-band sites hold garbage; the next stage re-pads
                 x = xb.reshape(B, C, Hp, Wp)[:, :, P: P + H, P: P + W]
                 continue
             if final_clip == "pack" and upscale == 4:
-                b = k3("final_pack").view(torch.uint8)       # (4, 4N)
+                b = run("final_pack").view(torch.uint8)       # (4, 4N)
                 b = b.reshape(upscale, B, C, Hp, Wp, upscale)
                 b = b[:, :, :, P: P + H, P: P + W, :]
                 o = b.permute(1, 2, 3, 0, 4, 5)
                 return o.reshape(B, C, H * upscale, W * upscale)
-            o = k3("final_u8" if final_clip else "final")[:v]
+            o = run("final_u8" if final_clip else "final")[:v]
             o = o.reshape(upscale, upscale, B, C, Hp, Wp)
             o = o[:, :, :, :, P: P + H, P: P + W]
             o = o.permute(2, 3, 4, 0, 5, 1)
@@ -218,8 +296,6 @@ def srnets_predict_fast(stacked_stages: list, x: torch.Tensor, *,
         acc = uk.stage_ensemble_apply(st, _ensemble_taps(x, modes),
                                       n_modes=M, v=v)
         if stage == stages:
-            # final_clip shapes only the plain epilogues, as in JAX (dense
-            # and quantized stacks ignore it)
             out = uk.final_mix(acc[:, :v], M)
             out = out.reshape(B, C, H, W, upscale, upscale)
             out = out.permute(0, 1, 2, 4, 3, 5)

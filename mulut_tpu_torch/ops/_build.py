@@ -4,7 +4,8 @@ Each source in `csrc/` has a plain C interface and is compiled by `nvcc`
 into its own shared library for `sm_90a`, then loaded with `ctypes`.  The
 build runs at first use, one `nvcc` per source, all started together; the
 libraries go to `_build/` beside this file (listed in `.gitignore`), named
-by a hash of the source and flags so an edited source is rebuilt.  Nothing
+by a hash of the source, the shared headers (`csrc/*.cuh`) and the flags,
+so an edited source or header is rebuilt.  Nothing
 here runs at import time.
 """
 
@@ -21,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fold_contract", "tail_assemble", "plain_window",
-           "dense_ensemble", "plain_w8a8")
+           "dense_ensemble", "dense_window", "dense_feature", "dense_unit",
+           "plain_w8a8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +43,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # any source may include one
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -1,288 +1,38 @@
-// Dense-concat unit stage ensemble over a site-major tap matrix (K4), sm_90a.
+// Dense-concat unit stage ensemble over a site-major tap matrix, sm_90a:
+// K4 and K9.
 //
-// Replaces the TPU kernel mulut_tpu/ops/unit_kernel.py:_ensemble_kernel
-// (reached through stage_ensemble_apply).  For every site n and pass
-// (mode m, rotation r), with t the 4 bf16 taps in columns (4m + r)*4 .. +3:
+// K4 replaces the TPU kernel mulut_tpu/ops/unit_kernel.py:_ensemble_kernel
+// (reached through stage_ensemble_apply): for every site n the 4M passes
+// of dense_body.cuh over the taps in columns (4m + r)*4 .. +3 of the
+// (n, 16M) matrix, and the raw accumulator out.
 //
-//   c1 = relu(bf16 chain: sum_k bf16(t[k] * w1[m][k]), then + b1[m])
-//   c_l = bf16(relu([c1 .. c_(l-1)] . w_(l+1)[m] + b_(l+1)[m])),  l = 2..5
-//   out[n][j] += rint(127 * tanh([c1 .. c5] . w6[m][:, 16r + j] + b6[..]))
-//
-// The head is the TPU kernel's broadcast form: every product and every
-// running sum is rounded to bf16, in tap order, then + b1 in bf16, then
-// ReLU, so it is bit-identical to the JAX kernel (XLA rounds each bf16 op).
-// The explicit __fmul_rn / __fadd_rn keep the compiler from fusing them
-// into an FMA.  The concat layers and the output head are bf16 products
-// summed in float32; tanh and rounding (half to even) are float32.  Build
-// without --use_fast_math.
-//
-// Bound: operations.  Per site and pass the concat layers are
-// 2*nf^2*(1+2+3+4) flops (81,920 at nf=64) and the output head 2*5nf*v,
-// against 96 bytes of taps per site for all 12 passes.  Design: a block
-// owns 128 consecutive sites, one warp 16 of them; all products after the
-// head are warp-level tensor-core MMAs (mma.sync m16n8k16, bf16 in, f32
-// accumulate).  The whole (16, 5nf) concat lives in the warp's registers
-// as A fragments: each layer's f32 output fragment, packed to bf16, is
-// the A fragment of the next k-tiles, so no activation touches shared or
-// device memory.  The mode's weights (w2..w5 and w6, transposed so each
-// output column's K values are contiguous; 128 KB at nf=64) are staged in
-// shared memory once per mode and read by all 4 rotations, with rows
-// padded by 8 bf16 for conflict-free fragment loads.  The inner stage
-// (v = 1) computes only the first 8 output lanes; the rest are zero
-// padding and stay 0.
+// K9 replaces unit_kernel.py:_pair_ensemble_kernel, the same entry with
+// the weights of pair_stage_params: two rotations share one matmul there
+// through block-diagonal weights, which fill the TPU's 128 MXU lanes at
+// nf=64.  The off-diagonal blocks are exact zeros, so K9 computes K4's
+// function.  Hopper's m16n8 tiles need no such pairing, and multiplying
+// the zeros would double the tensor-core work of layers 2-5 and of the
+// output head, so this is a kernel written for K9's weight layout that
+// computes K9's function: the per-mode staging copy reads the diagonal
+// blocks in place into K4's shared layout (copy_pair_blocks), and
+// everything after staging is K4's code.  Its accumulator is K4's, bit for
+// bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kSites = 16 * kWarps;
-constexpr int kHeadRows = 64;  // 4 rotations x 16 output lanes
-constexpr int kMaxModes = 6;
-
-}  // namespace
-
-struct DenseParams {
-  const __nv_bfloat16* taps;   // (n, 16M)
-  const __nv_bfloat16* w1t;    // (M, nf, 4)
-  const __nv_bfloat16* b1;     // (M, nf)
-  const __nv_bfloat16* wt[4];  // layer l = 2..5: (M, nf, (l-1)*nf), [out][in]
-  const __nv_bfloat16* hb[4];  // (M, nf)
-  const __nv_bfloat16* w6t;    // (M, 64, 5nf): row 16*r + lane
-  const __nv_bfloat16* b6;     // (M, 64)
-  float* out;                  // (n, 16)
-  long long n;
-  int modes, v;
-};
-
-namespace {
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t ld_b32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float bf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int ld,
-                                          const __nv_bfloat16* src, int rows,
-                                          int cols) {
-  const int chunks = cols / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-    const int r = i / chunks;
-    const int c = i - r * chunks;
-    *reinterpret_cast<int4*>(dst + r * ld + 8 * c) =
-        __ldg(reinterpret_cast<const int4*>(src + (long long)r * cols + 8 * c));
-  }
-}
-
-// bf16 head of feature f: w1 is [k][f] (float copies of bf16 values).
-template <int NF>
-__device__ __forceinline__ float head(const float* w1, const float* b1, int f,
-                                      const float (&t)[4]) {
-  float s = bf(__fmul_rn(t[0], w1[f]));
-#pragma unroll
-  for (int k = 1; k < 4; ++k)
-    s = bf(__fadd_rn(s, bf(__fmul_rn(t[k], w1[k * NF + f]))));
-  return fmaxf(bf(__fadd_rn(s, b1[f])), 0.f);
-}
-
-__device__ __forceinline__ void load_taps(const __nv_bfloat16* taps,
-                                          long long s, long long n, int stride,
-                                          int col, float (&t)[4]) {
-  if (s < n) {
-    const uint2 raw =
-        *reinterpret_cast<const uint2*>(taps + s * stride + col);
-    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-    t[0] = __low2float(lo);
-    t[1] = __high2float(lo);
-    t[2] = __low2float(hi);
-    t[3] = __high2float(hi);
-  } else {
-    t[0] = t[1] = t[2] = t[3] = 0.f;
-  }
-}
-
-// Shared layout: concat layers l = 2..5 (nf rows of (l-1)*nf + 8), then
-// the output head (64 rows of 5nf + 8), then float w1 [4][nf], b1 [nf],
-// hidden biases [4][nf] and b6 [64].
-template <int NF>
-__host__ __device__ constexpr int layer_offset(int l) {  // l = 1..4
-  return NF * ((l - 1) * NF * l / 2 + 8 * (l - 1));
-}
-
-template <int NF>
-constexpr size_t smem_bytes() {
-  return (size_t)(layer_offset<NF>(5) + kHeadRows * (5 * NF + 8)) * 2 +
-         (size_t)(4 * NF + NF + 4 * NF + kHeadRows) * 4;
-}
-
-template <int NF>
-__global__ void __launch_bounds__(kThreads)
-dense_ensemble_kernel(const DenseParams p) {
-  constexpr int KT1 = NF / 16;  // k-tiles of one concat slot
-  constexpr int NT = NF / 8;    // n-tiles of one layer's output
-  constexpr int KH = 5 * KT1;   // k-tiles of the whole concat
-  constexpr int LD6 = 5 * NF + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sW = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sW6 = sW + layer_offset<NF>(5);
-  float* sW1 = reinterpret_cast<float*>(sW6 + kHeadRows * LD6);
-  float* sB1 = sW1 + 4 * NF;
-  float* sHB = sB1 + NF;
-  float* sB6 = sHB + 4 * NF;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const long long s_lo = (long long)blockIdx.x * kSites + warp * 16 + g;
-  const long long s_hi = s_lo + 8;
-  const int stride = 16 * p.modes;
-  const int out_tiles = p.v > 8 ? 2 : 1;
-
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-
-  for (int mi = 0; mi < p.modes; ++mi) {
-    __syncthreads();
-#pragma unroll
-    for (int l = 1; l <= 4; ++l)
-      copy_rows(sW + layer_offset<NF>(l), l * NF + 8,
-                p.wt[l - 1] + (long long)mi * NF * l * NF, NF, l * NF);
-    copy_rows(sW6, LD6, p.w6t + (long long)mi * kHeadRows * 5 * NF, kHeadRows,
-              5 * NF);
-    for (int i = threadIdx.x; i < 4 * NF; i += kThreads)  // i = k*NF + f
-      sW1[i] = __bfloat162float(
-          p.w1t[(long long)mi * 4 * NF + (i % NF) * 4 + i / NF]);
-    for (int i = threadIdx.x; i < NF; i += kThreads) {
-      sB1[i] = __bfloat162float(p.b1[mi * NF + i]);
-#pragma unroll
-      for (int l = 0; l < 4; ++l)
-        sHB[l * NF + i] = __bfloat162float(p.hb[l][mi * NF + i]);
-    }
-    for (int i = threadIdx.x; i < kHeadRows; i += kThreads)
-      sB6[i] = __bfloat162float(p.b6[mi * kHeadRows + i]);
-    __syncthreads();
-
-    for (int r = 0; r < 4; ++r) {
-      const int col = (mi * 4 + r) * 4;
-      float tl[4], th[4];
-      load_taps(p.taps, s_lo, p.n, stride, col, tl);
-      load_taps(p.taps, s_hi, p.n, stride, col, th);
-      uint32_t a[KH][4];
-#pragma unroll
-      for (int kt = 0; kt < KT1; ++kt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int f = 16 * kt + 8 * h + 2 * t;
-          a[kt][2 * h] = pack_bf16(head<NF>(sW1, sB1, f, tl),
-                                   head<NF>(sW1, sB1, f + 1, tl));
-          a[kt][2 * h + 1] = pack_bf16(head<NF>(sW1, sB1, f, th),
-                                       head<NF>(sW1, sB1, f + 1, th));
-        }
-      }
-#pragma unroll
-      for (int l = 1; l <= 4; ++l) {  // concat slot l <- layer l+1
-        const __nv_bfloat16* w = sW + layer_offset<NF>(l);
-        const int ld = l * NF + 8;
-        float c[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-        for (int kt = 0; kt < l * KT1; ++kt) {
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const __nv_bfloat16* wr = w + (nt * 8 + g) * ld + kt * 16 + 2 * t;
-            mma_bf16(c[nt], a[kt], ld_b32(wr), ld_b32(wr + 8));
-          }
-        }
-        const float* hb = sHB + (l - 1) * NF;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int cc = nt * 8 + 2 * t;
-          const float b0 = hb[cc], b1 = hb[cc + 1];
-          const int kt = l * KT1 + nt / 2;
-          a[kt][(nt & 1) * 2] = pack_bf16(fmaxf(c[nt][0] + b0, 0.f),
-                                          fmaxf(c[nt][1] + b1, 0.f));
-          a[kt][(nt & 1) * 2 + 1] = pack_bf16(fmaxf(c[nt][2] + b0, 0.f),
-                                              fmaxf(c[nt][3] + b1, 0.f));
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        if (nt >= out_tiles) break;
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kt = 0; kt < KH; ++kt) {
-          const __nv_bfloat16* wr =
-              sW6 + (r * 16 + nt * 8 + g) * LD6 + kt * 16 + 2 * t;
-          mma_bf16(c, a[kt], ld_b32(wr), ld_b32(wr + 8));
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float o = tanhf(c[i] + sB6[r * 16 + nt * 8 + 2 * t + (i & 1)]);
-          acc[nt][i] += rintf(__fmul_rn(o, 127.f));
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long s = h ? s_hi : s_lo;
-    if (s >= p.n) continue;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-      *reinterpret_cast<float2*>(p.out + s * 16 + nt * 8 + 2 * t) =
-          make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-  }
-}
-
-template <int NF>
-int launch(const DenseParams& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<NF>();
-  auto kern = dense_ensemble_kernel<NF>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long blocks = (p.n + kSites - 1) / kSites;
-  kern<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "dense_body.cuh"
 
 // One stage of dense-concat units: out (n, 16) float32 = the raw
 // rotation/mode accumulator.  taps (n, 16M) bf16 contiguous; weights as in
-// DenseParams, contiguous, wt and w6t 16-byte aligned.  Returns a
-// cudaError_t (0 on success).
-extern "C" int dense_ensemble(const DenseParams* p, int nf, void* stream) {
+// DenseParams (paired != 0: the rotation-paired layout), contiguous, wt and
+// w6t 16-byte aligned.  Returns a cudaError_t (0 on success).
+extern "C" int dense_ensemble(const DenseParams* p, int nf, int paired,
+                              void* stream) {
   if (p->n <= 0) return 0;
-  if (p->modes < 1 || p->modes > kMaxModes || p->v < 1 || p->v > 16 ||
-      p->n > (1LL << 40))
-    return (int)cudaErrorInvalidValue;
+  if (int e = check_params(p)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nf) {
-    case 64: return launch<64>(*p, s);
+    case 64:
+      return paired ? launch<64, kSite, kSiteAcc, true>(*p, s)
+                    : launch<64, kSite, kSiteAcc, false>(*p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,7 @@
 """Whole-stage tap-MLP ensembles of net mode, with their CUDA kernels.
 
-Torch twin of the net-mode default paths of `mulut_tpu.ops.unit_kernel`.
-One launch evaluates all 4*M passes (M modes x 4 rotations) of one cascade
+Torch twin of the net-mode paths of `mulut_tpu.ops.unit_kernel`.  One
+launch evaluates all 4*M passes (M modes x 4 rotations) of one cascade
 stage: per pass the unit's head over its 4 taps, the hidden layers, the
 output head with the lane un-rotation baked into rotation r's w6 column
 block, and `acc += round(127 * tanh(.))`; the rotation/mode sum stays in
@@ -10,18 +10,29 @@ the kernel.
 - K3 `stage_ensemble_apply_w` (csrc/plain_window.cu) runs plain (mxu-arch)
   stacks.  It reads each pass's taps straight from the flat edge-padded
   plane (site p's tap (dy, dx) is p + dy*Wp + dx) and folds the cascade's
-  stage mix into its epilogue (`MIXES`).
+  stage mix into its epilogue (`MIXES`).  Given a dense stack the same
+  wrapper runs K5 (csrc/dense_window.cu), the dense kernel over the plane
+  with the same epilogues.
 - K4 `stage_ensemble_apply` (csrc/dense_ensemble.cu) runs dense-concat
   stacks over an (N, 16*M) bf16 tap matrix and returns the raw (N, 16)
-  accumulator; the mix runs in torch (`inner_mix`, `final_mix`).
+  accumulator; the mix runs in torch (`inner_mix`, `final_mix`).  Given a
+  rotation-paired stack (`pair_stage_params`) it runs K9, the same kernel
+  reading the paired weights' diagonal blocks.
+- K7 `stage_ensemble_apply_t` (csrc/dense_feature.cu) runs dense stacks
+  over the feature-major (16*M, N) tap matrix, with K3's epilogues.
 - K11 `stage_ensemble_apply_q` (csrc/plain_w8a8.cu) runs W8A8 quantized
-  plain stacks (`quant.py`) over the same tap matrix, with the same
-  output and torch mix as K4.
+  plain stacks (`quant.py`) over the (N, 16*M) tap matrix, with K4's
+  output and torch mix.
+- K10 `fused_unit_apply` (csrc/dense_unit.cu) runs one dense unit alone
+  over (N, 4) taps and returns bf16 tanh outputs.
+
+K4, K5, K7, K9 and K10 share one pass body (csrc/dense_body.cuh), so K5,
+K7 and K9 return K4's raw accumulator bit for bit.
 
 Numerics are the JAX kernels': bf16 weights and activations, float32
 products summed in float32, float32 bias/ReLU/tanh, round half to even.
-K4's and K11's head is the JAX package's broadcast form with every
-product and partial sum rounded to bf16.  K11's hidden and output
+The dense kernels' and K11's head is the JAX package's broadcast form with
+every product and partial sum rounded to bf16.  K11's hidden and output
 products are exact int8 x int8 -> int32 sums, and its dequantizing
 multiply-adds are single-rounded, as XLA fuses them.  The inner stage mix
 is XLA's jitted form of `round(acc / (4M) + 127)`: one fused multiply-add
@@ -46,8 +57,12 @@ from .taps import lane_rotation_perm, mode_pad, rotated_taps
 
 #: Kernel launches per wrapper (CUDA launches only; the plain CPU versions
 #: do not count).  A run resets them to 0 to show which kernels it used.
-LAUNCHES = {"stage_ensemble_apply_w": 0, "stage_ensemble_apply": 0,
-            "stage_ensemble_apply_q": 0}
+#: K3 and K5 share the window wrapper, K4 and K9 the tap-matrix one; each
+#: kernel has its own key.
+LAUNCHES = {"stage_ensemble_apply_w": 0, "stage_ensemble_apply_w_dense": 0,
+            "stage_ensemble_apply": 0, "stage_ensemble_apply_pair": 0,
+            "stage_ensemble_apply_t": 0, "stage_ensemble_apply_q": 0,
+            "fused_unit_apply": 0}
 
 #: K3 epilogues (`_apply_stage_mix_t` of the JAX package): None = raw
 #: accumulator; "inner" = the inner-stage mix as one bf16 row;
@@ -58,7 +73,7 @@ MIXES = (None, "inner", "final", "final_u8", "final_pack")
 _MAX_MODES = 6            # csrc/plain_window.cu kMaxModes
 _LANES = 16               # output lanes per rotation (csrc kHeadRows / 4)
 _PLAIN_NF = 128           # csrc/plain_window.cu instantiation (the artifacts)
-_DENSE_NF = 64            # csrc/dense_ensemble.cu instantiation (reference)
+_DENSE_NF = 64            # csrc/dense_*.cu instantiation (reference)
 _W8A8_NF = 128            # csrc/plain_w8a8.cu instantiation (the artifacts)
 _CHUNK = 1 << 19          # plain versions: sites per chunk
 _INV255 = float(np.float32(1 / 255))
@@ -147,10 +162,72 @@ def window_offsets(modes: str):
     return P, offs
 
 
+def window_tap_rows(modes: str) -> tuple:
+    """[mode][rotation][tap] -> index of its shift in `window_offsets`."""
+    _, offs = window_offsets(modes)
+    idx = {o: j for j, o in enumerate(offs)}
+    return tuple(tuple(tuple(idx[o] for o in rotated_taps(m, r))
+                       for r in range(4)) for m in modes)
+
+
 def plane_tap_offsets(modes: str, width: int) -> list:
     """Flat-plane offset dy*width + dx of every [mode][rotation][tap]."""
     return [[[dy * width + dx for dy, dx in rotated_taps(m, r)]
              for r in range(4)] for m in modes]
+
+
+def pair_stage_params(stacked_t: dict) -> dict:
+    """Rotation-pair block-diagonal weights (K9's layout) from a dense
+    stack in the kernels' layout: byte for byte `transpose_plain_stack` of
+    the JAX package's `pair_stage_params`.  Layer k's (M, 2nf, 2(k-1)nf)
+    weights hold the unpaired ones twice on the diagonal of each 2nf
+    block, the (M, 64, 10nf) output head rotation r's columns in the first
+    (r even) or second (r odd) half of each 2nf block; the off-diagonal
+    blocks are zeros.  Biases b2..b5 are doubled, b1 and b6 unchanged."""
+    if "hwt" in stacked_t:
+        raise ValueError(
+            "pair_stage_params expects dense-unit stacks; plain (mxu-arch) "
+            "units run full-width matmuls already")
+    M, nf, _ = stacked_t["w1t"].shape
+    out = {"w1t": stacked_t["w1t"], "b1": stacked_t["b1"]}
+    w = stacked_t["w2t"]
+    z = torch.zeros((M, nf, nf), dtype=w.dtype, device=w.device)
+    for k in (2, 3, 4, 5):
+        wt = stacked_t[f"w{k}t"]                   # (M, nf, (k-1) nf)
+        blocks = []
+        for j in range(k - 1):
+            c = wt[:, :, j * nf: (j + 1) * nf]
+            blocks.append(torch.cat([torch.cat([c, z], dim=2),
+                                     torch.cat([z, c], dim=2)], dim=1))
+        out[f"w{k}t"] = torch.cat(blocks, dim=2).contiguous()
+        out[f"b{k}"] = torch.cat([stacked_t[f"b{k}"]] * 2, dim=1)
+    w6t = stacked_t["w6t"]                          # (M, 64, 5nf)
+    zp = torch.zeros((M, _LANES, nf), dtype=w6t.dtype, device=w6t.device)
+    blocks = []
+    for j in range(5):
+        rows = [w6t[:, _LANES * r: _LANES * (r + 1), j * nf: (j + 1) * nf]
+                for r in range(4)]
+        blocks.append(torch.cat(
+            [torch.cat([rows[r], zp] if r % 2 == 0 else [zp, rows[r]],
+                       dim=2) for r in range(4)], dim=1))
+    out["w6t"] = torch.cat(blocks, dim=2).contiguous()   # (M, 64, 10nf)
+    out["b6"] = stacked_t["b6"]
+    return out
+
+
+def _unpair_stage_params(paired_t: dict) -> dict:
+    """The dense stack a `pair_stage_params` stack was made from: its
+    diagonal blocks, as K9's kernel stages them."""
+    M, nf, _ = paired_t["w1t"].shape
+    out = {k: paired_t[k] for k in ("w1t", "b1", "b6")}
+    for k in (2, 3, 4, 5):
+        w = paired_t[f"w{k}t"][:, :nf].reshape(M, nf, k - 1, 2, nf)
+        out[f"w{k}t"] = w[:, :, :, 0].reshape(M, nf, (k - 1) * nf)
+        out[f"b{k}"] = paired_t[f"b{k}"][:, :nf]
+    w6 = paired_t["w6t"].reshape(M, 4, _LANES, 5, 2, nf)
+    out["w6t"] = torch.stack([w6[:, r, :, :, r % 2] for r in range(4)],
+                             dim=1).reshape(M, 4 * _LANES, 5 * nf)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -235,37 +312,57 @@ def _bf(a):
 # ---------------------------------------------------------------------------
 
 
+def _plain_acc(st: dict, taps: torch.Tensor, n_modes: int) -> torch.Tensor:
+    """K3's passes over an (n, 16M) float32 tap matrix -> (n, 16) raw
+    accumulator (float32 matmuls over the bf16-valued operands)."""
+    w1t, b1 = _f32(st["w1t"]), _f32(st["b1"])
+    hwt, hb = _f32(st["hwt"]), _f32(st["hb"])
+    w6t, b6 = _f32(st["w6t"]), _f32(st["b6"])
+    acc = torch.zeros((taps.shape[0], _LANES), device=taps.device)
+    for mi in range(n_modes):
+        for r in range(4):
+            col = (mi * 4 + r) * 4
+            t = taps[:, col: col + 4].contiguous()
+            x = _bf(torch.relu(t @ w1t[mi].T + b1[mi]))
+            for d in range(hwt.shape[0]):
+                x = _bf(torch.relu(_f32(x) @ hwt[d, mi].T + hb[d, mi]))
+            sl = slice(_LANES * r, _LANES * (r + 1))
+            o = torch.tanh(_f32(x) @ w6t[mi, sl].T + b6[mi, sl])
+            acc += torch.round(o * 127.0)
+    return acc
+
+
 def stage_ensemble_apply_w_plain(stacked_t: dict, plane: torch.Tensor, *,
                                  modes: str, width: int,
                                  mix=None) -> torch.Tensor:
-    """Plain torch version of `stage_ensemble_apply_w` (same contract):
-    float32 matmuls over the bf16-valued operands, chunked over sites."""
+    """Plain torch version of `stage_ensemble_apply_w` (same contract, K3
+    or K5 by the stack), chunked over sites: each chunk's deduplicated
+    plane shifts gathered once (`window_offsets`), its tap matrix indexed
+    from them (`window_tap_rows`), then K3's passes or K4's."""
     M = len(modes)
     n = plane.shape[0]
-    offs = plane_tap_offsets(modes, width)
-    S = max(abs(o) for m in offs for r in m for o in r)
+    _, offs = window_offsets(modes)
+    shifts = [dy * width + dx for dy, dx in offs]
+    S = max(abs(o) for o in shifts)
     flat = torch.nn.functional.pad(_f32(plane), (S, S))
-    w1t, b1 = _f32(stacked_t["w1t"]), _f32(stacked_t["b1"])
-    hwt, hb = _f32(stacked_t["hwt"]), _f32(stacked_t["hb"])
-    w6t, b6 = _f32(stacked_t["w6t"]), _f32(stacked_t["b6"])
+    cols = torch.as_tensor([j for m in window_tap_rows(modes) for r in m
+                            for j in r], device=plane.device)
+    acc_fn = _plain_acc if "hwt" in stacked_t else _dense_acc
     rows, dtype = _mix_rows(mix)
     out = torch.empty((rows, n), dtype=dtype, device=plane.device)
     with full_f32_matmul():
         for c0 in range(0, n, _CHUNK):
             sites = torch.arange(c0, min(n, c0 + _CHUNK), device=plane.device)
-            acc = torch.zeros((sites.shape[0], _LANES), device=plane.device)
-            for mi in range(M):
-                for r in range(4):
-                    t = torch.stack([flat[S + o + sites] for o in offs[mi][r]],
-                                    dim=1)                        # (n_c, 4)
-                    x = _bf(torch.relu(t @ w1t[mi].T + b1[mi]))
-                    for d in range(hwt.shape[0]):
-                        x = _bf(torch.relu(_f32(x) @ hwt[d, mi].T + hb[d, mi]))
-                    sl = slice(_LANES * r, _LANES * (r + 1))
-                    o = torch.tanh(_f32(x) @ w6t[mi, sl].T + b6[mi, sl])
-                    acc += torch.round(o * 127.0)
+            win = torch.stack([flat[S + o + sites] for o in shifts], dim=1)
+            acc = acc_fn(stacked_t, win[:, cols], M)
             out[:, c0: c0 + sites.shape[0]] = _apply_mix(acc.T, mix, M)
     return out
+
+
+def _check_plane(plane: torch.Tensor):
+    if plane.dim() != 1 or plane.dtype != torch.bfloat16:
+        raise ValueError(f"plane must be a 1-D bfloat16 tensor, got "
+                         f"{tuple(plane.shape)} {plane.dtype}")
 
 
 class _PlainDesc(ctypes.Structure):
@@ -310,26 +407,28 @@ def _check_stack(st: dict, keys, what: str):
 def stage_ensemble_apply_w(stacked_t: dict, plane: torch.Tensor, *,
                            modes: str, width: int, mix=None,
                            v: int | None = None):
-    """One plain-unit cascade stage over the flat edge-padded plane.
+    """One cascade stage over the flat edge-padded plane: K3 for a plain
+    stack, K5 for a dense one (no `hwt`, as the JAX entry tells them).
 
-    stacked_t: `transpose_plain_stack` of a plain `stack_stage_params`
-    (bf16).  plane: (N,) bf16, the (B, C, Hp, Wp) image edge-padded by the
-    `window_offsets` halo on all sides and flattened; width = Wp.  Taps
-    that fall outside [0, N) read 0; pad-band sites compute values the
-    caller crops.  v: the unit's real output lanes (default 16); the
-    kernel skips the output-head columns past them, whose lanes are zero
-    padding.  Returns (rows, N) per `MIXES`: (16, N) float32 for None and
-    "final", (16, N) bf16 for "final_u8", (1, N) bf16 for "inner", (4, N)
-    int32 for "final_pack".
+    stacked_t: `transpose_plain_stack` of a plain or dense
+    `stack_stage_params` (bf16).  plane: (N,) bf16, the (B, C, Hp, Wp)
+    image edge-padded by the `window_offsets` halo on all sides and
+    flattened; width = Wp.  Taps that fall outside [0, N) read 0; pad-band
+    sites compute values the caller crops.  v: the unit's real output
+    lanes (default 16); the kernel skips the output-head columns past
+    them, whose lanes are zero padding.  Returns (rows, N) per `MIXES`:
+    (16, N) float32 for None and "final", (16, N) bf16 for "final_u8",
+    (1, N) bf16 for "inner", (4, N) int32 for "final_pack".
     """
     if mix not in MIXES:
         raise ValueError(f"mix must be one of {MIXES}, got {mix!r}")
+    M = len(modes)
+    if "hwt" not in stacked_t:
+        return _dense_window(stacked_t, plane, modes=modes, width=width,
+                             mix=mix, v=v)
     _check_stack(stacked_t, ("w1t", "b1", "hwt", "hb", "w6t", "b6"),
                  "plain")
-    if plane.dim() != 1 or plane.dtype != torch.bfloat16:
-        raise ValueError(f"plane must be a 1-D bfloat16 tensor, got "
-                         f"{tuple(plane.shape)} {plane.dtype}")
-    M = len(modes)
+    _check_plane(plane)
     D, M_, nf, _ = stacked_t["hwt"].shape
     if M_ != M or stacked_t["w6t"].shape != (M, 4 * _LANES, nf):
         raise ValueError(f"stack does not match {M} modes")
@@ -368,8 +467,12 @@ def stage_ensemble_apply_w(stacked_t: dict, plane: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# K4: dense ensemble kernel
+# The dense-unit kernels: K4 and K9 (tap matrix), K5 (plane), K7
+# (feature-major tap matrix), K10 (one unit)
 # ---------------------------------------------------------------------------
+
+_DENSE_KEYS = ("w1t", "b1", "w2t", "b2", "w3t", "b3", "w4t", "b4", "w5t",
+               "b5", "w6t", "b6")
 
 
 def _dense_head(t: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor):
@@ -383,37 +486,56 @@ def _dense_head(t: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor):
     return torch.relu(_bf(_f32(x) + _f32(b1)))
 
 
-def stage_ensemble_apply_plain(stacked_t: dict, taps: torch.Tensor, *,
-                               n_modes: int):
-    """Plain torch version of `stage_ensemble_apply` (same contract)."""
-    N = taps.shape[0]
-    hidden = [k for k in (2, 3, 4, 5) if f"w{k}t" in stacked_t]
-    out = torch.empty((N, _LANES), device=taps.device)
-    with full_f32_matmul():
-        for c0 in range(0, N, _CHUNK):
-            tc = taps[c0: c0 + _CHUNK]
-            acc = torch.zeros((tc.shape[0], _LANES), device=taps.device)
-            for mi in range(n_modes):
-                for r in range(4):
-                    col = (mi * 4 + r) * 4
-                    cat = _dense_head(tc[:, col: col + 4],
-                                      stacked_t["w1t"][mi].T,
-                                      stacked_t["b1"][mi])
-                    for k in hidden:
-                        xk = torch.relu(
-                            _f32(cat) @ _f32(stacked_t[f"w{k}t"][mi]).T
-                            + _f32(stacked_t[f"b{k}"][mi]))
-                        cat = torch.cat([cat, _bf(xk)], dim=1)
-                    sl = slice(_LANES * r, _LANES * (r + 1))
-                    o = torch.tanh(_f32(cat) @ _f32(stacked_t["w6t"][mi, sl]).T
-                                   + _f32(stacked_t["b6"][mi, sl]))
-                    acc += torch.round(o * 127.0)
-            out[c0: c0 + tc.shape[0]] = acc
-    return out
+def _dense_pass(st: dict, t: torch.Tensor, mi: int, rows: slice):
+    """One dense-unit pass of mode mi over (n, 4) taps: the head, the
+    concat layers, and output-head rows `rows` of w6t before the tanh
+    (float32).  Call under `full_f32_matmul`."""
+    cat = _dense_head(t, st["w1t"][mi].T, st["b1"][mi])
+    for k in (2, 3, 4, 5):
+        xk = torch.relu(_f32(cat) @ _f32(st[f"w{k}t"][mi]).T
+                        + _f32(st[f"b{k}"][mi]))
+        cat = torch.cat([cat, _bf(xk)], dim=1)
+    return _f32(cat) @ _f32(st["w6t"][mi, rows]).T + _f32(st["b6"][mi, rows])
+
+
+def _dense_acc(st: dict, taps: torch.Tensor, n_modes: int) -> torch.Tensor:
+    """K4's passes over an (n, 16M) tap matrix -> (n, 16) raw
+    accumulator.  Call under `full_f32_matmul`."""
+    acc = torch.zeros((taps.shape[0], _LANES), device=taps.device)
+    for mi in range(n_modes):
+        for r in range(4):
+            col = (mi * 4 + r) * 4
+            o = _dense_pass(st, taps[:, col: col + 4], mi,
+                            slice(_LANES * r, _LANES * (r + 1)))
+            acc += torch.round(torch.tanh(o) * 127.0)
+    return acc
+
+
+def _check_dense_stack(st: dict, n_modes: int, *, paired_ok: bool = False):
+    """Keys, dtypes and shapes of a dense (or, with paired_ok, a
+    rotation-paired) stack in the kernels' layout; returns (nf, paired)."""
+    _check_stack(st, _DENSE_KEYS, "dense")
+    nf = st["w1t"].shape[1]
+    paired = st["w2t"].shape[1] == 2 * nf
+    if paired and not paired_ok:
+        raise ValueError("a rotation-paired stack runs the site-major tap "
+                         "matrix (stage_ensemble_apply, K9) only")
+    p = 2 if paired else 1
+    shapes = {"w1t": (n_modes, nf, 4), "b1": (n_modes, nf),
+              "w6t": (n_modes, 4 * _LANES, p * 5 * nf),
+              "b6": (n_modes, 4 * _LANES)}
+    for k in (2, 3, 4, 5):
+        shapes[f"w{k}t"] = (n_modes, p * nf, p * (k - 1) * nf)
+        shapes[f"b{k}"] = (n_modes, p * nf)
+    for k, shape in shapes.items():
+        if tuple(st[k].shape) != shape:
+            raise ValueError(f"stack does not match {n_modes} modes: {k} is "
+                             f"{tuple(st[k].shape)}, expected {shape}")
+    return nf, paired
 
 
 class _DenseDesc(ctypes.Structure):
-    """Mirror of `DenseParams` in csrc/dense_ensemble.cu."""
+    """Mirror of `DenseParams` in csrc/dense_body.cuh."""
 
     _fields_ = [
         ("taps", ctypes.c_void_p),
@@ -427,15 +549,71 @@ class _DenseDesc(ctypes.Structure):
         ("n", ctypes.c_longlong),
         ("modes", ctypes.c_int),
         ("v", ctypes.c_int),
+        ("inv_4m", ctypes.c_float),
+        ("offs", ctypes.c_int * (_MAX_MODES * 16)),
     ]
 
 
 @functools.cache
-def _dense_fn():
-    fn = library("dense_ensemble").dense_ensemble
-    fn.argtypes = [ctypes.POINTER(_DenseDesc), ctypes.c_int, ctypes.c_void_p]
+def _dense_fn(name: str):
+    """The C entry `name` of csrc/{name}.cu: (params, nf, [paired or mix,]
+    stream) -> cudaError_t; dense_unit takes no third argument."""
+    fn = getattr(library(name), name)
+    fn.argtypes = ([ctypes.POINTER(_DenseDesc), ctypes.c_int]
+                   + ([] if name == "dense_unit" else [ctypes.c_int])
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_dense(name: str, st: dict, src: torch.Tensor, out: torch.Tensor,
+                  *, n: int, modes: int, v: int, arg=None, offs=()):
+    """Launch csrc/{name}.cu's entry on the current stream over the dense
+    stack `st` (kernels' layout), the tap source `src` (n sites) and
+    `out`; `arg` is the entry's paired flag or mix index."""
+    nf = st["w1t"].shape[1]
+    if nf != _DENSE_NF or modes > _MAX_MODES:
+        raise NotImplementedError(
+            f"the CUDA dense kernels are built for nf={_DENSE_NF} and at "
+            f"most {_MAX_MODES} modes; got nf={nf}, {modes} modes")
+    ts = [st[k] for k in _DENSE_KEYS]
+    if not all(t.is_contiguous() for t in ts + [src]):
+        raise ValueError(f"{name} needs contiguous tensors")
+    if any(st[k].data_ptr() % 16 for k in _DENSE_KEYS[2::2]):
+        raise ValueError("w2t..w6t must be 16-byte aligned")
+    d = _DenseDesc()
+    d.taps, d.w1t, d.b1 = src.data_ptr(), ts[0].data_ptr(), ts[1].data_ptr()
+    for i, k in enumerate((2, 3, 4, 5)):
+        d.wt[i] = st[f"w{k}t"].data_ptr()
+        d.hb[i] = st[f"b{k}"].data_ptr()
+    d.w6t, d.b6 = st["w6t"].data_ptr(), st["b6"].data_ptr()
+    d.out, d.n, d.modes, d.v = out.data_ptr(), n, modes, v
+    d.inv_4m = float(np.float32(1.0 / (4 * modes)))
+    for i, o in enumerate(offs):
+        d.offs[i] = o
+    args = [ctypes.byref(d), nf] + ([] if arg is None else [arg])
+    with torch.cuda.device(src.device):
+        err = _dense_fn(name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+# K4 and K9
+
+
+def stage_ensemble_apply_plain(stacked_t: dict, taps: torch.Tensor, *,
+                               n_modes: int):
+    """Plain torch version of `stage_ensemble_apply` on dense stacks (K4)
+    and rotation-paired ones (K9, through their diagonal blocks)."""
+    if stacked_t["w2t"].shape[1] == 2 * stacked_t["w1t"].shape[1]:
+        stacked_t = _unpair_stage_params(stacked_t)
+    N = taps.shape[0]
+    out = torch.empty((N, _LANES), device=taps.device)
+    with full_f32_matmul():
+        for c0 in range(0, N, _CHUNK):
+            tc = taps[c0: c0 + _CHUNK]
+            out[c0: c0 + tc.shape[0]] = _dense_acc(stacked_t, tc, n_modes)
+    return out
 
 
 def stage_ensemble_apply(stacked_t: dict, taps: torch.Tensor, *,
@@ -443,13 +621,14 @@ def stage_ensemble_apply(stacked_t: dict, taps: torch.Tensor, *,
     """(N, 16*M) bf16 tap matrix -> (N, 16) float32 ensemble over a dense
     stack: the sum over modes and rotations of round(127 * unit(taps)),
     lanes already un-rotated.  stacked_t: `transpose_plain_stack` of a
-    dense `stack_stage_params` (bf16).  Column block (mi*4 + r)*4 .. +4
-    holds pass (mi, r)'s 4 taps.  v: as in `stage_ensemble_apply_w`.
+    dense `stack_stage_params` (bf16), K4; or its `pair_stage_params`,
+    K9.  Column block (mi*4 + r)*4 .. +4 holds pass (mi, r)'s 4 taps.  v:
+    as in `stage_ensemble_apply_w`.
 
     A quantized stack (`quant.kernel_stack`, key "hwqt") goes to K11,
-    `stage_ensemble_apply_q`, as the JAX entry routes it.  The paired (K9)
-    and site-major plain (K8) stacks that share this JAX entry are not
-    ported: they raise NotImplementedError.
+    `stage_ensemble_apply_q`, as the JAX entry routes it.  The site-major
+    plain stacks (K8) that share this JAX entry are not ported: they raise
+    NotImplementedError.
     """
     if "hwt" in stacked_t:
         raise NotImplementedError(
@@ -461,49 +640,162 @@ def stage_ensemble_apply(stacked_t: dict, taps: torch.Tensor, *,
         raise ValueError(
             "a quantized stack in the JAX package's layout (hwq); K11 "
             "reads quant.kernel_stack's layout (hwqt)")
-    keys = ["w1t", "b1", "w2t", "b2", "w3t", "b3", "w4t", "b4", "w5t", "b5",
-            "w6t", "b6"]
-    _check_stack(stacked_t, keys, "dense")
-    nf = stacked_t["w1t"].shape[1]
-    if stacked_t["w2t"].shape[1] != nf:
-        raise NotImplementedError(
-            "rotation-paired stacks (K9) are a later slice of the port")
+    _check_stack(stacked_t, _DENSE_KEYS, "dense")
     if (taps.dim() != 2 or taps.shape[1] != 16 * n_modes
             or taps.dtype != torch.bfloat16):
         raise ValueError(f"taps must be (N, {16 * n_modes}) bfloat16, got "
                          f"{tuple(taps.shape)} {taps.dtype}")
-    if stacked_t["w6t"].shape != (n_modes, 4 * _LANES, 5 * nf):
-        raise ValueError(f"stack does not match {n_modes} modes")
-    ts = [stacked_t[k] for k in keys]
-    dev = _check_device(taps, *ts)
+    _, paired = _check_dense_stack(stacked_t, n_modes, paired_ok=True)
+    dev = _check_device(taps, *(stacked_t[k] for k in _DENSE_KEYS))
     if dev.type == "cpu":
         return stage_ensemble_apply_plain(stacked_t, taps, n_modes=n_modes)
-    if nf != _DENSE_NF:
-        raise NotImplementedError(
-            f"the CUDA dense kernel is built for nf={_DENSE_NF}; got nf={nf}")
-    if not all(t.is_contiguous() for t in ts + [taps]):
-        raise ValueError("stage_ensemble_apply needs contiguous tensors")
-    if taps.data_ptr() % 8 or any(
-            stacked_t[k].data_ptr() % 16 for k in keys[2::2]):
-        raise ValueError("taps must be 8-byte and w2t..w6t 16-byte aligned")
+    if taps.data_ptr() % 8:
+        raise ValueError("taps must be 8-byte aligned")
     N = taps.shape[0]
     out = torch.empty((N, _LANES), dtype=torch.float32, device=dev)
-    d = _DenseDesc()
-    d.taps, d.w1t, d.b1 = (taps.data_ptr(), stacked_t["w1t"].data_ptr(),
-                           stacked_t["b1"].data_ptr())
-    for i, k in enumerate((2, 3, 4, 5)):
-        d.wt[i] = stacked_t[f"w{k}t"].data_ptr()
-        d.hb[i] = stacked_t[f"b{k}"].data_ptr()
-    d.w6t, d.b6 = stacked_t["w6t"].data_ptr(), stacked_t["b6"].data_ptr()
-    d.out, d.n, d.modes = out.data_ptr(), N, n_modes
-    d.v = _LANES if v is None else v
-    with torch.cuda.device(dev):
-        err = _dense_fn()(ctypes.byref(d), nf,
-                          torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"stage_ensemble_apply: CUDA error {err}")
-    LAUNCHES["stage_ensemble_apply"] += 1
+    _launch_dense("dense_ensemble", stacked_t, taps, out, n=N, modes=n_modes,
+                  v=_LANES if v is None else v, arg=int(paired))
+    LAUNCHES["stage_ensemble_apply_pair" if paired
+             else "stage_ensemble_apply"] += 1
     return out
+
+
+# K5 (reached through stage_ensemble_apply_w)
+
+
+def _dense_window(st: dict, plane: torch.Tensor, *, modes: str, width: int,
+                  mix, v):
+    """`stage_ensemble_apply_w` over a dense stack (K5)."""
+    M = len(modes)
+    _check_dense_stack(st, M)
+    _check_plane(plane)
+    dev = _check_device(plane, *(st[k] for k in _DENSE_KEYS))
+    if dev.type == "cpu":
+        return stage_ensemble_apply_w_plain(st, plane, modes=modes,
+                                            width=width, mix=mix)
+    rows, dtype = _mix_rows(mix)
+    n = plane.shape[0]
+    out = torch.empty((rows, n), dtype=dtype, device=dev)
+    offs = [o for m in plane_tap_offsets(modes, width) for r in m for o in r]
+    _launch_dense("dense_window", st, plane, out, n=n, modes=M,
+                  v=_LANES if v is None else v, arg=MIXES.index(mix),
+                  offs=offs)
+    LAUNCHES["stage_ensemble_apply_w_dense"] += 1
+    return out
+
+
+# K7
+
+
+def stage_ensemble_apply_t_plain(stacked_t: dict, taps_t: torch.Tensor, *,
+                                 n_modes: int, mix=None) -> torch.Tensor:
+    """Plain torch version of `stage_ensemble_apply_t` (same contract)."""
+    n = taps_t.shape[1]
+    rows, dtype = _mix_rows(mix)
+    out = torch.empty((rows, n), dtype=dtype, device=taps_t.device)
+    with full_f32_matmul():
+        for c0 in range(0, n, _CHUNK):
+            tc = taps_t[:, c0: c0 + _CHUNK].T
+            acc = _dense_acc(stacked_t, tc, n_modes)
+            out[:, c0: c0 + tc.shape[0]] = _apply_mix(acc.T, mix, n_modes)
+    return out
+
+
+def stage_ensemble_apply_t(stacked_t: dict, taps_t: torch.Tensor, *,
+                           n_modes: int, mix=None, v: int | None = None):
+    """(16*M, N) bf16 feature-major tap matrix (row (mi*4 + r)*4 + k holds
+    pass (mi, r)'s tap k) -> (rows, N) per `MIXES` over a dense stack
+    (K7): `stage_ensemble_apply`'s function with `stage_ensemble_apply_w`'s
+    epilogues.  Plain stacks over this matrix are K6, not ported yet.
+    """
+    if "hwt" in stacked_t:
+        raise NotImplementedError(
+            "plain stacks over the feature-major tap matrix (K6, "
+            "MULUT_PLAIN_WINDOW=0) are the next slice of the port")
+    if mix not in MIXES:
+        raise ValueError(f"mix must be one of {MIXES}, got {mix!r}")
+    _check_dense_stack(stacked_t, n_modes)
+    if (taps_t.dim() != 2 or taps_t.shape[0] != 16 * n_modes
+            or taps_t.dtype != torch.bfloat16):
+        raise ValueError(f"taps_t must be ({16 * n_modes}, N) bfloat16, got "
+                         f"{tuple(taps_t.shape)} {taps_t.dtype}")
+    dev = _check_device(taps_t, *(stacked_t[k] for k in _DENSE_KEYS))
+    if dev.type == "cpu":
+        return stage_ensemble_apply_t_plain(stacked_t, taps_t,
+                                            n_modes=n_modes, mix=mix)
+    rows, dtype = _mix_rows(mix)
+    n = taps_t.shape[1]
+    out = torch.empty((rows, n), dtype=dtype, device=dev)
+    _launch_dense("dense_feature", stacked_t, taps_t, out, n=n,
+                  modes=n_modes, v=_LANES if v is None else v,
+                  arg=MIXES.index(mix))
+    LAUNCHES["stage_ensemble_apply_t"] += 1
+    return out
+
+
+# K10
+
+
+def _unit_stack(params: dict, out_dim: int) -> dict:
+    """One dense unit's bf16 params (w1 (4, nf) .. w6 (5nf, out_dim)) as a
+    one-mode stack in the kernels' layout, the output head zero-padded to
+    max(8, out_dim rounded up to 8) columns, as the JAX kernel pads it."""
+    from ..models.blocks import unit_layout
+
+    _check_stack(params, ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4",
+                          "w5", "b5", "w6", "b6"), "dense unit")
+    if not unit_layout(params)[0] or params["w6"].shape[1] != out_dim:
+        raise ValueError(f"params are not a dense unit with {out_dim} "
+                         f"outputs")
+    pad = max(8, -(-out_dim // 8) * 8) - out_dim
+    st = {"w1t": params["w1"].T, "b1": params["b1"],
+          "w6t": torch.nn.functional.pad(params["w6"], (0, pad)).T,
+          "b6": torch.nn.functional.pad(params["b6"], (0, pad))}
+    for k in (2, 3, 4, 5):
+        st[f"w{k}t"], st[f"b{k}"] = params[f"w{k}"].T, params[f"b{k}"]
+    return {k: a[None].contiguous() for k, a in st.items()}
+
+
+def fused_unit_apply_plain(params: dict, taps: torch.Tensor, *,
+                           out_dim: int) -> torch.Tensor:
+    """Plain torch version of `fused_unit_apply` (same contract)."""
+    st = _unit_stack(params, out_dim)
+    N = taps.shape[0]
+    out = torch.empty((N, out_dim), dtype=torch.bfloat16, device=taps.device)
+    with full_f32_matmul():
+        for c0 in range(0, N, _CHUNK):
+            tc = taps[c0: c0 + _CHUNK]
+            o = _dense_pass(st, tc, 0, slice(0, out_dim))
+            out[c0: c0 + tc.shape[0]] = _bf(torch.tanh(o))
+    return out
+
+
+def fused_unit_apply(params: dict, taps: torch.Tensor, *,
+                     out_dim: int) -> torch.Tensor:
+    """(N, 4) bf16 taps -> (N, out_dim) bf16 through one dense-concat unit
+    (K10): the dense kernels' pass with the unit's own head (no rotation
+    lanes), bf16(tanh(.)) out.  params: the unit's bf16 tensors in the
+    `blocks.init_mulut_unit(dense=True)` layout.  The kernel's layout is
+    made from them on every call (about 100 KB at nf=64)."""
+    st = _unit_stack(params, out_dim)
+    if taps.dim() != 2 or taps.shape[1] != 4 or taps.dtype != torch.bfloat16:
+        raise ValueError(f"taps must be (N, 4) bfloat16, got "
+                         f"{tuple(taps.shape)} {taps.dtype}")
+    dev = _check_device(taps, *st.values())
+    if dev.type == "cpu":
+        return fused_unit_apply_plain(params, taps, out_dim=out_dim)
+    if out_dim > _LANES:
+        raise NotImplementedError(
+            f"the CUDA unit kernel writes at most {_LANES} outputs; got "
+            f"{out_dim}")
+    if taps.data_ptr() % 8:
+        raise ValueError("taps must be 8-byte aligned")
+    N = taps.shape[0]
+    v = st["w6t"].shape[1]
+    out = torch.empty((N, v), dtype=torch.bfloat16, device=dev)
+    _launch_dense("dense_unit", st, taps, out, n=N, modes=1, v=v)
+    LAUNCHES["fused_unit_apply"] += 1
+    return out[:, :out_dim]
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,8 @@ Torch twins of `mulut_tpu.pipelines.evaluate`:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -222,7 +224,9 @@ class NetEvaluator:
 
     `fast=True` runs the tap-MLPs in bf16 through one stage-ensemble
     kernel launch per stage: the window kernel K3 for plain (mxu-arch)
-    units, the dense ensemble kernel K4 for dense-concat units.
+    units; for dense-concat units the kernel that `models.srnet`'s flags
+    pick (K4 by default, K5 or K7 under `DENSE_LAYOUT = "feature"`), or
+    K9 when MULUT_PAIRED_KERNEL=1 is set at construction.
     `quant` (implies `fast`; plain units only, else ValueError) quantizes
     the units to W8A8 at construction (`ops.quant`, calibrated from the
     float32 params) and runs the int8 kernel K11 per stage: True or "int"
@@ -260,8 +264,11 @@ class NetEvaluator:
                 self.params, modes=modes, stages=stages, scale=scale,
                 requant=quant if isinstance(quant, str) else "int")
         elif fast:
+            # MULUT_PAIRED_KERNEL=1 selects the rotation-paired stacks
+            # (kernel K9, dense units only), as in the JAX package
             self.stacked = stack_srnets_for_fast(
-                self.params, modes=modes, stages=stages, scale=scale)
+                self.params, modes=modes, stages=stages, scale=scale,
+                paired=os.environ.get("MULUT_PAIRED_KERNEL", "0") == "1")
             if any("hwt" in st for st in self.stacked):
                 self._luma_clip = "pack" if scale == 4 else True
 

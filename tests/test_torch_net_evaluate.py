@@ -105,13 +105,6 @@ def test_predict_fast_equals_jax(arch, nf, final_clip):
     assert not any(tuk.LAUNCHES.values())
 
 
-def test_stack_srnets_paired_raises():
-    with pytest.raises(NotImplementedError, match="K9"):
-        tsn.stack_srnets_for_fast(params_from_numpy(_params("dense", 8),
-                                                    "cpu"), paired=True,
-                                  **CFG)
-
-
 @pytest.fixture(scope="module")
 def artifact_evaluators():
     from mulut_tpu.models.torch_import import load_params_npz

@@ -27,6 +27,7 @@ import mulut_tpu.models.srnet as jsn
 import mulut_tpu.ops.unit_kernel as juk
 from mulut_tpu.models.srnet import init_srnets as jax_init_srnets
 from mulut_tpu.ops.taps import rotated_taps
+from mulut_tpu_torch.models import srnet as tsn
 from mulut_tpu_torch.models.srnet import _ensemble_taps, _window_plane
 from mulut_tpu_torch.models.torch_import import params_from_numpy
 from mulut_tpu_torch.ops import unit_kernel as tuk
@@ -227,7 +228,7 @@ def test_dense_head_bit_equal_to_jax():
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-def test_wrappers_check_inputs():
+def test_wrappers_check_inputs(monkeypatch):
     tp = params_from_numpy(_params("mxu", 16, 7), "cpu")
     plain = tuk.stack_stage_params(tp, stage=2, modes=MODES, upscale=4)
     plain_t = tuk.transpose_plain_stack(plain)
@@ -249,9 +250,14 @@ def test_wrappers_check_inputs():
     dp = params_from_numpy(_params("dense", 8, 7), "cpu")
     dense = tuk.transpose_plain_stack(
         tuk.stack_stage_params(dp, stage=2, modes=MODES, upscale=4))
-    with pytest.raises(NotImplementedError, match="K9"):
-        paired = dict(dense, w2t=torch.cat([dense["w2t"]] * 2, dim=1))
-        tuk.stage_ensemble_apply(paired, taps, n_modes=3)
+    # plain stacks with PLAIN_WINDOW off take the tap-matrix kernel K6,
+    # which is not ported
+    with pytest.raises(NotImplementedError, match="K6"):
+        tuk.stage_ensemble_apply_t(plain_t, taps.T.contiguous(), n_modes=3)
+    with pytest.raises(NotImplementedError, match="K6"):
+        monkeypatch.setattr(tsn, "PLAIN_WINDOW", False)
+        tsn.srnets_predict_fast([plain_t, plain_t], torch.zeros(1, 1, 5, 6),
+                                modes=MODES, stages=2, scale=4)
     # quantized stacks go to K11 in its own layout (hwqt); the JAX
     # package's layout (hwq) is refused
     with pytest.raises(ValueError, match="hwqt"):
