@@ -74,8 +74,27 @@ as in phase 8, the same batch):
      x, unit_impl="pallas")`, each of its 6 unit calls against its plain
      version, 6 launches counted, the crop card vs CPU, timings.
 
-Prints a `{"kernels": [...]}` line (K1-K5, K7, K9, K10, K11) and ends
-with one `{"ok": true, "device": {...}}` line.  Any failed phase raises.
+Then the plain-unit routes of net mode (the `_ftr2` weights, the same
+batch):
+
+ 12. for each of K6 (`models.srnet.PLAIN_WINDOW = False`), K8 with the
+     float32 head (`PLAIN_LAYOUT = "site"`) and K8 with the bf16 chain head
+     (also `ops.unit_kernel.PLAIN_HEAD = "vpu"`): `NetEvaluator(fast=True)`;
+     every kernel call of `upscale_batch` and `upscale_yuv_batch` held
+     against its plain version (raw accumulator and its own epilogue); for
+     the float32 head its raw accumulator against K3's on the same stage
+     input, over the image sites (no entry may differ: one pass body);
+     both entry points with every launch counter set to 0 just before and
+     read just after (2 launches of the route's kernel each, none of
+     another), and for the float32 head their bytes equal to the K3
+     route's; the 135 x 240 crop on the card against the port's CPU path;
+     timings per call site (ms, bound, plain version, cuBLAS chain
+     yardstick), the route's `srnets_predict_fast` device ms beside the K3
+     route's, and `upscale_batch` host ms.
+
+Prints a `{"kernels": [...]}` line (K1-K11; K8 with the float32 head) and
+ends with one `{"ok": true, "device": {...}}` line.  Any failed phase
+raises.
 """
 
 from __future__ import annotations
@@ -108,12 +127,18 @@ SOURCE_K5 = "mulut_tpu_torch/ops/csrc/dense_window.cu"
 SOURCE_K7 = "mulut_tpu_torch/ops/csrc/dense_feature.cu"
 SOURCE_K9 = "mulut_tpu_torch/ops/csrc/dense_ensemble.cu"
 SOURCE_K10 = "mulut_tpu_torch/ops/csrc/dense_unit.cu"
+SOURCE_K6 = "mulut_tpu_torch/ops/csrc/plain_feature.cu"
+SOURCE_K8 = "mulut_tpu_torch/ops/csrc/plain_site.cu"
 #: the JAX bodies (def lines; K5 shares K3's entry :1084, K7 is reached
 #: through :1217, K9 through K4's :1281, K10 through :69)
 REPLACES_K5 = "mulut_tpu/ops/unit_kernel.py:972"
 REPLACES_K7 = "mulut_tpu/ops/unit_kernel.py:802"
 REPLACES_K9 = "mulut_tpu/ops/unit_kernel.py:232"
 REPLACES_K10 = "mulut_tpu/ops/unit_kernel.py:45"
+#: the JAX bodies' first def lines: K6 `_plain_t_kernel` (also :719, :767),
+#: K8 `_plain_ensemble_kernel` (also :406, :443, :487, :637)
+REPLACES_K6 = "mulut_tpu/ops/unit_kernel.py:681"
+REPLACES_K8 = "mulut_tpu/ops/unit_kernel.py:374"
 NET_WEIGHTS = "artifacts/mxu_distilled_x4sdy_nf128_d2_ftr2.npz"
 BF16_FLOPS_PER_MS = 989e9          # H100 SXM dense bf16 tensor cores
 INT8_OPS_PER_MS = 1979e9           # H100 SXM dense int8 tensor cores
@@ -273,27 +298,33 @@ def _u8_gate(what, got, ref):
         raise RuntimeError(f"{what} misses its gate")
 
 
+def _plain_work(st_t, n, src_bytes, v, mix):
+    """(useful flops, bytes) of one plain stage-ensemble call over n image
+    sites: per site and pass the K=4 head, the depth nf x nf layers and v
+    output lanes; the tap source and the weights read once, each site's
+    output written once."""
+    D, M, nf, _ = st_t["hwt"].shape
+    flops = n * 4 * M * (2 * nf * 4 + 2 * D * nf * nf + 2 * nf * v)
+    out_bytes = {"inner": 2, "final_pack": 16, "final_u8": 32}.get(mix, 64)
+    w_bytes = sum(t.numel() * 2 for t in st_t.values())
+    return flops, src_bytes + w_bytes + n * out_bytes
+
+
 def _k3_work(st_t, plane, kw):
-    """(useful flops, bytes) of one window-kernel call on an image of H
-    rows: per image site (the plane's pad band, computed and cropped, does
-    not count) and pass the K=4 head, the depth nf x nf layers and v output
-    lanes; the plane read once, the weights once, each image site's output
-    written once."""
+    """(image sites, useful flops, bytes) of one window-kernel call on an
+    image of H rows (`_plain_work`; the plane's pad band, computed and
+    cropped, does not count)."""
     from mulut_tpu_torch.ops.unit_kernel import window_offsets
 
-    D, M, nf, _ = st_t["hwt"].shape
     P, _ = window_offsets(kw["modes"])
-    Wp, Hp, v = kw["width"], H + 2 * P, kw.get("v") or 16
+    Wp, Hp = kw["width"], H + 2 * P
     bc, rest = divmod(plane.shape[0], Hp * Wp)
     if rest:
         raise RuntimeError(f"plane of {plane.shape[0]} is not B*C x {Hp} x "
                            f"{Wp}")
     n = bc * H * (Wp - 2 * P)
-    flops = n * 4 * M * (2 * nf * 4 + 2 * D * nf * nf + 2 * nf * v)
-    out_bytes = {"inner": 2, "final_pack": 16, "final_u8": 32}.get(
-        kw.get("mix"), 64)
-    w_bytes = sum(t.numel() * 2 for t in st_t.values())
-    return n, flops, plane.shape[0] * 2 + w_bytes + n * out_bytes
+    return (n, *_plain_work(st_t, n, plane.shape[0] * 2, kw.get("v") or 16,
+                            kw.get("mix")))
 
 
 def _k4_work(st_t, taps, kw):
@@ -963,6 +994,194 @@ def _dense_routes(torch, tk, imgs):
     return entries
 
 
+#: Phase 12's plain routes: kernel, launch key, the wrapper that reaches
+#: it, and the flags that select it (`models.srnet.PLAIN_WINDOW` and
+#: `PLAIN_LAYOUT`, `ops.unit_kernel.PLAIN_HEAD`).
+PLAIN_ROUTES = (
+    ("K6", "stage_ensemble_apply_t_mxu_arch", "stage_ensemble_apply_t",
+     False, "feature", "mxu"),
+    ("K8", "stage_ensemble_apply_mxu_arch", "stage_ensemble_apply",
+     True, "site", "mxu"),
+    ("K8 vpu", "stage_ensemble_apply_mxu_arch", "stage_ensemble_apply",
+     True, "site", "vpu"),
+)
+
+
+@contextlib.contextmanager
+def _plain_flags(sn, uk, window, layout, head):
+    """The plain routes' flags (all read at each forward), restored on
+    exit."""
+    old = sn.PLAIN_WINDOW, sn.PLAIN_LAYOUT, uk.PLAIN_HEAD
+    sn.PLAIN_WINDOW, sn.PLAIN_LAYOUT, uk.PLAIN_HEAD = window, layout, head
+    try:
+        yield
+    finally:
+        sn.PLAIN_WINDOW, sn.PLAIN_LAYOUT, uk.PLAIN_HEAD = old
+
+
+def _plain_routes(torch, tk, imgs):
+    """Phase 12; returns the K6 and K8 entries of the kernels line."""
+    from mulut_tpu_torch.models import srnet as sn
+    from mulut_tpu_torch.models.torch_import import load_params_npz
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.ops.taps import rotated_taps
+    from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
+
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    counters = (tk.LAUNCHES, uk.LAUNCHES)
+    crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
+    mpix = BATCH * H * SCALE * W * SCALE / 1e6
+    # a stage's input is its tap source's first tap (mode 0, rotation 0)
+    if rotated_taps(MODES[0], 0)[0] != (0, 0):
+        raise RuntimeError("tap 0 of the first mode is not the site itself")
+    P, _ = uk.window_offsets(MODES)
+    params = load_params_npz(NET_WEIGHTS)
+    x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2).float() / 255
+    chain = {}
+
+    # the K3 route (the default) as every route's reference
+    ev3 = NetEvaluator(params, fast=True, **cfg)
+    ref = ev3.upscale_batch(imgs), ev3.upscale_yuv_batch(imgs)
+    dev3_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
+        ev3.stacked, x, **cfg), 5)
+    print(f"plain K3 route srnets_predict_fast on the card (CUDA events): "
+          f"{dev3_ms:.3f} ms/batch")
+    sites = ["rgb s1", "rgb s2", "yuv s1", "yuv s2"]
+    tots, errs, counts = {}, {}, {}
+    for kn, key, wname, window, layout, head in PLAIN_ROUTES:
+        wrapper = getattr(uk, wname)
+        plain_fn = getattr(uk, wname + "_plain")
+        with _plain_flags(sn, uk, window, layout, head):
+            ev = NetEvaluator(params, fast=True, **cfg)
+
+            def both():
+                ev.upscale_batch(imgs)
+                ev.upscale_yuv_batch(imgs)
+
+            (calls,) = _record_calls(uk, (wname,), both)
+            if len(calls) != len(sites):
+                raise RuntimeError(f"{kn}: recorded {len(calls)} {wname} "
+                                   f"calls; expected {len(sites)}")
+            err = 0.0
+            for site, ((st, src), kw) in zip(sites, calls):
+                for kind in (None, kw["mix"]):
+                    kwm = dict(kw, mix=kind)
+                    got = wrapper(st, src, **kwm)
+                    want = plain_fn(st, src, **{
+                        k: v_ for k, v_ in kwm.items() if k != "v"})
+                    torch.cuda.synchronize()
+                    err = max(err, _gate(
+                        f"{kn} {site} {'raw acc' if kind is None else kind} "
+                        f"{tuple(got.shape)} vs plain",
+                        _differ(torch, got, want, kind),
+                        RAW_ABS if kind is None else MIX_ABS))
+                    if kind is not None or head != "mxu":
+                        continue
+                    # the raw accumulator against K3's on this stage's
+                    # input, over the image sites: one pass body, so no
+                    # entry may differ
+                    img = (src[0] if kn == "K6" else src[:, 0]).reshape(
+                        BATCH, -1, H, W)
+                    plane, (Hp, Wp, _) = sn._window_plane(img, MODES)
+                    k3 = uk.stage_ensemble_apply_w(st, plane, modes=MODES,
+                                                   width=Wp, v=kw["v"])
+                    k3 = k3.view(16, BATCH, -1, Hp, Wp)[
+                        ..., P: Hp - P, P: Wp - P].reshape(16, -1)
+                    raw = got if kn == "K6" else got.T
+                    _gate(f"{kn} {site} raw acc vs K3 {tuple(k3.shape)}",
+                          (raw - k3).abs(), 0, max_frac=0)
+            # the main path through the entry points, counted
+            for fn, want in zip((ev.upscale_batch, ev.upscale_yuv_batch),
+                                ref):
+                _reset(*counters)
+                out = fn(imgs)
+                launches = dict(uk.LAUNCHES)
+                print(f"{kn} route {fn.__name__}: {imgs.shape} -> "
+                      f"{out.shape}, launches {launches} + LUT "
+                      f"{dict(tk.LAUNCHES)}")
+                if launches != _only(uk.LAUNCHES, key, 2) or any(
+                        tk.LAUNCHES.values()):
+                    raise RuntimeError(f"{kn} route {fn.__name__} launches "
+                                       f"{launches}; expected 2 {key}")
+                if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or \
+                        out.dtype != np.uint8:
+                    raise RuntimeError(f"bad output {out.shape} {out.dtype}")
+                if fn == ev.upscale_batch:
+                    counts[kn] = launches[key]
+                if head == "mxu":
+                    n_diff = int((out != want).sum())
+                    print(f"{kn} route {fn.__name__} vs the K3 route: "
+                          f"{n_diff} of {out.size} bytes differ")
+                    if n_diff:
+                        raise RuntimeError(f"{kn} route bytes differ from "
+                                           "K3's")
+            t0 = time.perf_counter()
+            ev_cpu = NetEvaluator(params, fast=True, device="cpu", **cfg)
+            _u8_gate(f"{kn} route {CROP_H}x{CROP_W} crop, card vs CPU path",
+                     ev.upscale(crop), ev_cpu.upscale(crop))
+            _u8_gate(f"{kn} route {CROP_H}x{CROP_W} crop YUV, card vs CPU",
+                     ev.upscale_yuv(crop), ev_cpu.upscale_yuv(crop))
+            print(f"{kn} route CPU path: {time.perf_counter() - t0:.1f} s")
+            # timings
+            reps = 5
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                ev.upscale_batch(imgs)
+            batch_ms = (time.perf_counter() - t0) * 1e3 / reps
+            dev_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
+                ev.stacked, x, **cfg), reps)
+            print(f"{kn} route upscale_batch (host clock, H2D + D2H "
+                  f"included): {batch_ms:.3f} ms/batch = "
+                  f"{mpix / batch_ms * 1e3:.2f} MPix/s")
+            print(f"{kn} route srnets_predict_fast on the card (CUDA "
+                  f"events): {dev_ms:.3f} ms/batch = "
+                  f"{mpix / dev_ms * 1e3:.2f} MPix/s (K3 route "
+                  f"{dev3_ms:.3f})")
+            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+            for site, ((st, src), kw) in zip(sites, calls):
+                n = src.shape[1] if kn == "K6" else src.shape[0]
+                D, M, nf, _ = st["hwt"].shape
+                flops, nbytes = _plain_work(st, n, src.numel() * 2, kw["v"],
+                                            kw["mix"])
+                if (n, kw["v"]) not in chain:
+                    chain[n, kw["v"]] = _chain_ms(torch, n, M, nf, kw["v"],
+                                                  False, D)
+                pkw = {k: v_ for k, v_ in kw.items() if k != "v"}
+                t = {
+                    "ms": _cuda_ms(torch, lambda: wrapper(st, src, **kw), 10),
+                    "plain_ms": _cuda_ms(torch, lambda: plain_fn(
+                        st, src, **pkw), 2),
+                    "bound_ms": max(flops / BF16_FLOPS_PER_MS,
+                                    nbytes / HBM_BYTES_PER_MS),
+                    "cublas_chain_ms": chain[n, kw["v"]],
+                }
+                print(f"{kn} {site} {kw['mix']}: image sites={n} "
+                      f"flops={flops:.4e} bytes={nbytes} "
+                      + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+                if site.startswith("rgb"):
+                    for k in tot:
+                        tot[k] += t[k]
+            print(f"{kn} per batch (rgb s1 + s2): "
+                  + " ".join(f"{k}={v_:.4f}" for k, v_ in tot.items()))
+            tots[kn], errs[kn] = tot, err
+            del ev, ev_cpu, calls
+            torch.cuda.empty_cache()
+    del ev3, x
+    torch.cuda.empty_cache()
+
+    def entry(kn, key, src, rep, err):
+        return {"name": key, "route": "cuda", "source": src, "replaces": rep,
+                "launches": counts[kn], "max_abs_err": err,
+                "ms": tots[kn]["ms"], "plain_ms": tots[kn]["plain_ms"],
+                "bound_ms": tots[kn]["bound_ms"], "bound_by": "operations",
+                "library_ms": None}
+
+    return [entry("K6", PLAIN_ROUTES[0][1], SOURCE_K6, REPLACES_K6,
+                  errs["K6"]),
+            entry("K8", PLAIN_ROUTES[1][1], SOURCE_K8, REPLACES_K8,
+                  max(errs["K8"], errs["K8 vpu"]))]
+
+
 def main() -> int:
     import torch
 
@@ -1131,6 +1350,7 @@ def main() -> int:
     net_entries = _net_mode(torch, tk, imgs)
     net_entries.append(_quant_mode(torch, tk, imgs))
     net_entries += _dense_routes(torch, tk, imgs)
+    net_entries += _plain_routes(torch, tk, imgs)
 
     print(json.dumps({"kernels": [
         {"name": "gather_fold_contract", "route": "cuda",

@@ -12,9 +12,11 @@ permutation (ref: sr/1_train_model.py:26-45).
 `srnets_predict_fast` takes the JAX package's kernel routes, chosen by the
 same module flags (read at call time):
 
-- plain (mxu-arch) stacks run the window kernel K3 with the stage mix in
-  its epilogue (`PLAIN_WINDOW`; with it off they would take the tap-matrix
-  kernel K6, which is not ported and raises);
+- plain (mxu-arch) stacks run, with `PLAIN_LAYOUT = "feature"` (the
+  default), the window kernel K3 (`PLAIN_WINDOW`) or the feature-major
+  tap-matrix kernel K6, both with the stage mix in their epilogue; with
+  `PLAIN_LAYOUT = "site"` the site-major tap-matrix kernel K8, its mix in
+  the epilogue too and its head per `ops.unit_kernel.PLAIN_HEAD`;
 - dense stacks run the site-major ensemble kernel K4 over the tap matrix
   with the mix in torch (`DENSE_LAYOUT = "site"`, the default), or with
   `DENSE_LAYOUT = "feature"` the dense window kernel K5 (`PLAIN_WINDOW`)
@@ -41,14 +43,19 @@ from ..ops.taps import lane_rotation_perm, mode_pad, rotated_taps
 from .blocks import apply_mulut_unit, init_mulut_unit, unit_layout
 
 
+#: Plain-stack layout of `srnets_predict_fast`: "feature" (K3 with
+#: `PLAIN_WINDOW`, else K6) or "site" (the (N, 16M) tap matrix, K8), as the
+#: JAX package's flag of the same name.
+PLAIN_LAYOUT = "feature"
+
 #: Dense-stack layout of `srnets_predict_fast`: "site" (the (N, 16M) tap
 #: matrix, K4) or "feature" (K5 with `PLAIN_WINDOW`, else K7), as the JAX
 #: package's flag of the same name.
 DENSE_LAYOUT = "site"
 
 #: Feature-layout stages read their taps from the padded plane (K3, K5);
-#: MULUT_PLAIN_WINDOW=0 pins the tap-matrix kernels (K7; K6 for plain
-#: stacks, not ported), as in the JAX package.
+#: MULUT_PLAIN_WINDOW=0 pins the feature-major tap-matrix kernels (K6 for
+#: plain stacks, K7 for dense), as in the JAX package.
 PLAIN_WINDOW = os.environ.get("MULUT_PLAIN_WINDOW", "1") != "0"
 
 
@@ -240,9 +247,11 @@ def srnets_predict_fast(stacked_stages: list, x: torch.Tensor, *,
     round(acc / M) (final_clip False); on the routes with the mix in the
     kernel epilogue (plain stacks; dense ones under DENSE_LAYOUT
     "feature"), its clip to [0, 255] as bf16 (True) or, at x4 with
-    final_clip "pack", uint8 from the kernel's packed words; the other
-    routes ignore final_clip, as in JAX.  Stage inputs and all stacks must
-    be on one device: CUDA launches the kernels, CPU runs their plain
+    final_clip "pack" on a feature-major route, uint8 from the kernel's
+    packed words (the site-major K8 has no packed epilogue and takes
+    "pack" as True); the other routes ignore final_clip, as in JAX.  An
+    unknown layout flag raises ValueError.  Stage inputs and all stacks
+    must be on one device: CUDA launches the kernels, CPU runs their plain
     versions.
     """
     M = len(modes)
@@ -254,22 +263,23 @@ def srnets_predict_fast(stacked_stages: list, x: torch.Tensor, *,
         v = upscale * upscale
         st = stacked_stages[s]
         plain = "hwt" in st
-        # unpaired dense stacks may take the feature-layout kernels;
-        # paired and quantized stacks are site-major forms only
-        feature = plain or (DENSE_LAYOUT == "feature" and "w2t" in st
-                            and st["w2t"].shape[1] == st["w1t"].shape[1])
-        if feature:
+        if plain:
+            flag, layout = "PLAIN_LAYOUT", PLAIN_LAYOUT
+        elif "w2t" in st and st["w2t"].shape[1] == st["w1t"].shape[1]:
+            flag, layout = "DENSE_LAYOUT", DENSE_LAYOUT
+        else:   # paired and quantized stacks are site-major forms only
+            flag, layout = None, "site"
+        if layout not in ("feature", "site"):
+            raise ValueError(f"{flag} must be 'feature' or 'site', got "
+                             f"{layout!r}")
+        if layout == "feature":
             if PLAIN_WINDOW:       # K3 / K5 over the padded plane
                 plane, (Hp, Wp, P) = _window_plane(x, modes)
 
                 def run(mix, st=st, plane=plane, Wp=Wp, v=v):
                     return uk.stage_ensemble_apply_w(
                         st, plane, modes=modes, width=Wp, mix=mix, v=v)
-            elif plain:
-                raise NotImplementedError(
-                    "plain stacks with PLAIN_WINDOW off run the tap-matrix "
-                    "kernel K6, the next slice of the port")
-            else:                  # K7 over the feature-major tap matrix
+            else:          # K6 / K7 over the feature-major tap matrix
                 taps_t = _ensemble_taps_t(x, modes)
                 Hp, Wp, P = H, W, 0
 
@@ -293,11 +303,21 @@ def srnets_predict_fast(stacked_stages: list, x: torch.Tensor, *,
             o = o[:, :, :, :, P: P + H, P: P + W]
             o = o.permute(2, 3, 4, 0, 5, 1)
             return o.reshape(B, C, H * upscale, W * upscale)
-        acc = uk.stage_ensemble_apply(st, _ensemble_taps(x, modes),
-                                      n_modes=M, v=v)
-        if stage == stages:
+        taps = _ensemble_taps(x, modes)
+        if plain:                  # K8, the mix in its epilogue
+            mix = ("inner" if stage < stages
+                   else "final_u8" if final_clip else "final")
+            out = uk.stage_ensemble_apply(st, taps, n_modes=M, v=v, mix=mix)
+            if stage < stages:
+                x = out[:, 0].reshape(B, C, H, W)
+                continue
+            out = out[:, :v]
+        else:                      # K4, K9, K11: the mix in torch
+            acc = uk.stage_ensemble_apply(st, taps, n_modes=M, v=v)
+            if stage < stages:
+                x = uk.inner_mix(acc[:, 0], M).reshape(B, C, H, W)
+                continue
             out = uk.final_mix(acc[:, :v], M)
-            out = out.reshape(B, C, H, W, upscale, upscale)
-            out = out.permute(0, 1, 2, 4, 3, 5)
-            return out.reshape(B, C, H * upscale, W * upscale)
-        x = uk.inner_mix(acc[:, 0], M).reshape(B, C, H, W)
+        out = out.reshape(B, C, H, W, upscale, upscale)
+        out = out.permute(0, 1, 2, 4, 3, 5)
+        return out.reshape(B, C, H * upscale, W * upscale)

@@ -22,8 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("fold_contract", "tail_assemble", "plain_window",
-           "dense_ensemble", "dense_window", "dense_feature", "dense_unit",
-           "plain_w8a8")
+           "plain_feature", "plain_site", "dense_ensemble", "dense_window",
+           "dense_feature", "dense_unit", "plain_w8a8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

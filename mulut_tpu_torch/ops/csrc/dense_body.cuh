@@ -7,13 +7,12 @@
 //   c_l = bf16(relu([c1 .. c_(l-1)] . w_(l+1)[m] + b_(l+1)[m])),  l = 2..5
 //   acc[n][j] += rint(127 * tanh([c1 .. c5] . w6[m][:, 16r + j] + b6[..]))
 //
-// The head is the TPU kernels' broadcast form: every product and every
-// running sum is rounded to bf16, in tap order, then + b1 in bf16, then
-// ReLU, so it is bit-identical to the JAX kernels (XLA rounds each bf16
-// op).  The explicit __fmul_rn / __fadd_rn keep the compiler from fusing
-// them into an FMA.  The concat layers and the output head are bf16
-// products summed in float32; tanh and rounding (half to even) are
-// float32.  Build without --use_fast_math.
+// The head is the TPU kernels' broadcast form (net_common.cuh's
+// chain_head): every product and every running sum is rounded to bf16, in
+// tap order, then + b1 in bf16, then ReLU, so it is bit-identical to the
+// JAX kernels.  The concat layers and the output head are bf16 products
+// summed in float32; tanh and rounding (half to even) are float32.  Build
+// without --use_fast_math.
 //
 // Bound: operations.  Per site and pass the concat layers are
 // 2*nf^2*(1+2+3+4) flops (81,920 at nf=64) and the output head 2*5nf*v,
@@ -61,53 +60,16 @@ struct DenseParams {
 
 namespace {
 
-// Where a pass's 4 taps come from.
-enum Src { kSite = 0, kFeature = 1, kPlane = 2, kUnit = 3 };
 // MIX value of the site-major raw accumulator, (n, 16) float32 (K4, K9);
 // kNone .. kFinalPack write feature-major through store_mix (K5, K7).
 constexpr int kSiteAcc = 5;
 
-__device__ __forceinline__ float bf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// bf16 head of feature f: w1 is [k][f] (float copies of bf16 values).
+// bf16 head of feature f (net_common.cuh's chain): w1 is [k][f] (float
+// copies of bf16 values).
 template <int NF>
 __device__ __forceinline__ float head(const float* w1, const float* b1, int f,
                                       const float (&t)[4]) {
-  float s = bf(__fmul_rn(t[0], w1[f]));
-#pragma unroll
-  for (int k = 1; k < 4; ++k)
-    s = bf(__fadd_rn(s, bf(__fmul_rn(t[k], w1[k * NF + f]))));
-  return fmaxf(bf(__fadd_rn(s, b1[f])), 0.f);
-}
-
-// 4 contiguous bf16 taps of row s (row stride `stride`), 0 past n.
-__device__ __forceinline__ void load_taps(const __nv_bfloat16* taps,
-                                          long long s, long long n, int stride,
-                                          int col, float (&t)[4]) {
-  if (s < n) {
-    const uint2 raw =
-        *reinterpret_cast<const uint2*>(taps + s * stride + col);
-    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-    t[0] = __low2float(lo);
-    t[1] = __high2float(lo);
-    t[2] = __low2float(hi);
-    t[3] = __high2float(hi);
-  } else {
-    t[0] = t[1] = t[2] = t[3] = 0.f;
-  }
-}
-
-// The 4 taps of site s in rows col .. col+3 of a feature-major (16M, n)
-// matrix, 0 past n.
-__device__ __forceinline__ void load_taps_t(const __nv_bfloat16* taps,
-                                            long long s, long long n, int col,
-                                            float (&t)[4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    t[k] = s < n ? __bfloat162float(taps[(col + k) * n + s]) : 0.f;
+  return chain_head(w1 + f, NF, b1[f], t);
 }
 
 // The diagonal blocks of a rotation-paired layer into the unpaired shared
@@ -310,20 +272,10 @@ dense_kernel(const DenseParams p) {
   }
 
   if (SRC == kUnit) return;
-  if (MIX == kSiteAcc) {
-    float* out = static_cast<float*>(p.out);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long s = h ? s_hi : s_lo;
-      if (s >= p.n) continue;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-        *reinterpret_cast<float2*>(out + s * 16 + nt * 8 + 2 * t) =
-            make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-    }
-  } else {
+  if (MIX == kSiteAcc)
+    store_mix<kNone, true>(acc, p.out, p.n, s_lo, s_hi, t, p.modes, p.inv_4m);
+  else
     store_mix<MIX>(acc, p.out, p.n, s_lo, s_hi, t, p.modes, p.inv_4m);
-  }
 }
 
 template <int NF, int SRC, int MIX, bool PAIRED>

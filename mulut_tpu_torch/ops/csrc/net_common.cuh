@@ -1,8 +1,9 @@
-// Pieces shared by the net-mode stage-ensemble kernels (plain_window.cu,
-// dense_*.cu): the block shape, bf16 fragment helpers, the shared-memory
-// staging copy and K3's stage-mix epilogue (the JAX package's
-// _apply_stage_mix_t), which the dense window and feature-major kernels
-// take over as it is.
+// Pieces shared by the net-mode stage-ensemble kernels (plain_body.cuh,
+// dense_body.cuh): the block shape, bf16 fragment helpers, the
+// shared-memory staging copy, the tap sources, the bf16 broadcast head and
+// K3's stage-mix epilogue (the JAX package's _apply_stage_mix_t, and its
+// site-major twin _apply_stage_mix), which every kernel with a mix
+// epilogue takes over as it is.
 
 #pragma once
 
@@ -20,6 +21,13 @@ constexpr int kHeadRows = 64;         // 4 rotations x 16 output lanes
 
 // Stage-mix epilogues, in the order of unit_kernel.MIXES.
 enum Mix { kNone = 0, kInner = 1, kFinal = 2, kFinalU8 = 3, kFinalPack = 4 };
+// Where a pass's 4 taps come from: kSite, the (n, 16M) tap matrix; kFeature,
+// the (16M, n) one; kPlane, the flat edge-padded plane; kUnit, (n, 4).
+enum Src { kSite = 0, kFeature = 1, kPlane = 2, kUnit = 3 };
+
+__device__ __forceinline__ float bf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -60,21 +68,94 @@ __device__ __forceinline__ float tap(const __nv_bfloat16* plane, long long n,
   return (q >= 0 && q < n) ? __bfloat162float(plane[q]) : 0.f;
 }
 
+// 4 contiguous bf16 taps of row s (row stride `stride`), 0 past n.
+__device__ __forceinline__ void load_taps(const __nv_bfloat16* taps,
+                                          long long s, long long n, int stride,
+                                          int col, float (&t)[4]) {
+  if (s < n) {
+    const uint2 raw =
+        *reinterpret_cast<const uint2*>(taps + s * stride + col);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+    t[0] = __low2float(lo);
+    t[1] = __high2float(lo);
+    t[2] = __low2float(hi);
+    t[3] = __high2float(hi);
+  } else {
+    t[0] = t[1] = t[2] = t[3] = 0.f;
+  }
+}
+
+// The 4 taps of site s in rows col .. col+3 of a feature-major (16M, n)
+// matrix, 0 past n.
+__device__ __forceinline__ void load_taps_t(const __nv_bfloat16* taps,
+                                            long long s, long long n, int col,
+                                            float (&t)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    t[k] = s < n ? __bfloat162float(taps[(col + k) * n + s]) : 0.f;
+}
+
+// The TPU kernels' broadcast head of one feature: every product and every
+// running sum rounded to bf16, in tap order, then + b in bf16, then ReLU,
+// so it is bit-identical to the JAX kernels (XLA rounds each bf16 op).
+// w[k * ks] is tap k's weight and b the bias (float copies of bf16
+// values).  The explicit __fmul_rn / __fadd_rn keep the compiler from
+// fusing them into an FMA.
+__device__ __forceinline__ float chain_head(const float* w, int ks, float b,
+                                            const float (&t)[4]) {
+  float s = bf(__fmul_rn(t[0], w[0]));
+#pragma unroll
+  for (int k = 1; k < 4; ++k)
+    s = bf(__fadd_rn(s, bf(__fmul_rn(t[k], w[k * ks]))));
+  return fmaxf(bf(__fadd_rn(s, b)), 0.f);
+}
+
 __device__ __forceinline__ float final_value(float acc, int modes) {
   return fminf(fmaxf(rintf(__fdiv_rn(acc, (float)modes)), 0.f), 255.f);
 }
 
-// The stage mix of a warp's accumulators, written feature-major: acc[nt][i]
-// is site (i < 2 ? s_lo : s_hi), lane nt*8 + 2t + (i & 1).  out is (16, n)
+// The stage mix of a warp's accumulators: acc[nt][i] is site (i < 2 ?
+// s_lo : s_hi), lane nt*8 + 2t + (i & 1).  Feature-major, out is (16, n)
 // float32 for kNone (raw acc) and kFinal (round(acc/M)); (16, n) bf16 for
 // kFinalU8 (its clip to [0, 255]); (1, n) bf16 for kInner (XLA's
 // fma(acc, 1/(4M), 127), rounded and clipped, times 1/255); (4, n) uint32
-// for kFinalPack (byte sx of word sy = lane 4*sy + sx).
-template <int MIX>
+// for kFinalPack (byte sx of word sy = lane 4*sy + sx).  Site-major (SITE),
+// the same values as (n, 16) and, for kInner, (n, 1); there is no packed
+// site-major form.
+template <int MIX, bool SITE = false>
 __device__ __forceinline__ void store_mix(const float (&acc)[2][4], void* out_,
                                           long long n, long long s_lo,
                                           long long s_hi, int t, int modes,
                                           float inv_4m) {
+  static_assert(!(SITE && MIX == kFinalPack), "no packed site-major form");
+  if (SITE && MIX != kInner) {
+    // this thread's lanes nt*8 + 2t and + 1 of a site are adjacent
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long s = h ? s_hi : s_lo;
+      if (s >= n) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float a0 = acc[nt][2 * h], a1 = acc[nt][2 * h + 1];
+        const long long i = s * 16 + nt * 8 + 2 * t;
+        if (MIX == kNone) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out_) + i) =
+              make_float2(a0, a1);
+        } else if (MIX == kFinal) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out_) + i) =
+              make_float2(rintf(__fdiv_rn(a0, (float)modes)),
+                          rintf(__fdiv_rn(a1, (float)modes)));
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(out_) + i) =
+              __floats2bfloat162_rn(final_value(a0, modes),
+                                    final_value(a1, modes));
+        }
+      }
+    }
+    return;
+  }
   if (MIX == kFinalPack) {
     // lane 4*sy + sx: this thread holds sx = 2(t&1), 2(t&1)+1 of
     // sy = 2nt + (t>>1); the partner thread t^1 holds the other two bytes

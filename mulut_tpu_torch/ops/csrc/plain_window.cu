@@ -2,212 +2,17 @@
 //
 // Replaces the TPU kernel mulut_tpu/ops/unit_kernel.py:_plain_w_kernel
 // (reached through stage_ensemble_apply_w, rs schedule) and its epilogue
-// _apply_stage_mix_t.  For every site p of the padded plane and every pass
-// (mode m, rotation r), with x0 the 4 taps plane[p + off[m][r][k]]:
-//
-//   x1 = bf16(relu(x0 . w1[m] + b1[m]))                    head, K = 4
-//   xd = bf16(relu(x(d-1) . hw[d][m] + hb[d][m]))           depth layers
-//   acc[l] += rint(127 * tanh(x_D . w6[m][:, 16r + l] + b6[m][16r + l]))
-//
-// then the stage mix of acc (MIX below).  Products of bf16 values are
-// exact in float32 and are summed in float32, as the TPU's MXU dots with
-// preferred_element_type=f32; ReLU, bias, tanh and rounding are float32.
-// Rounding is half to even (rintf), never roundf.  Build without
-// --use_fast_math: tanhf, division and the inner mix's FMA must be IEEE.
-//
-// Bound: operations.  Per site and pass the hidden layers are 2*nf^2*D
-// flops (65,536 at nf=128, D=2) against 2 bytes of input; the tensor cores
-// bound it.  Design: a block owns 128 consecutive sites, one warp 16 of
-// them.  The hidden and output layers are warp-level tensor-core MMAs
-// (mma.sync m16n8k16, bf16 in, f32 accumulate).  A layer's f32 output
-// fragment is exactly the next layer's A fragment once packed to bf16, so
-// each warp's activations (16 sites x nf) never leave its registers, and
-// the layers of a warp need no block synchronisation.  The mode's weights
-// (D * nf * nf + 64 * nf bf16, 87 KB at nf=128, D=2) are staged in shared
-// memory once per mode and read by all 4 rotations; rows are padded by 8
-// bf16 so the B-fragment loads are free of bank conflicts.  The taps are
-// read straight from the plane (no per-tile window copies, which exist on
-// the TPU only because Mosaic cannot index freely); a tap outside [0, N)
-// reads 0, as the TPU's zero-padded windows do.  The head (K = 4) runs on
-// the CUDA cores in float32.  The inner stage's output head computes only
-// its first 8 lanes (v = 1; the other lanes are zero padding).
+// _apply_stage_mix_t: plain_body.cuh's pass with the float32 head, each
+// pass's taps read straight from the plane (site p's tap (dy, dx) is
+// p + dy*Wp + dx, a tap outside [0, n) reads 0, as the TPU's zero-padded
+// windows do; pad-band sites compute values the caller crops).  The TPU
+// cut the plane into per-tile windows only because Mosaic cannot index
+// freely; here no tap matrix and no window copy exist.
 
-#include "net_common.cuh"
+#include "plain_body.cuh"
 
-struct PlainParams {
-  const __nv_bfloat16* plane;  // (n,) edge-padded plane, flat
-  const __nv_bfloat16* w1t;    // (M, nf, 4)
-  const __nv_bfloat16* b1;     // (M, nf)
-  const __nv_bfloat16* hwt;    // (D, M, nf, nf): [d][m][out][in]
-  const __nv_bfloat16* hb;     // (D, M, nf)
-  const __nv_bfloat16* w6t;    // (M, 64, nf): row 16*r + lane
-  const __nv_bfloat16* b6;     // (M, 64)
-  void* out;                   // see plain_window()
-  long long n;
-  int modes, depth, v;
-  float inv_4m;                // float32(1 / (4M))
-  int offs[kMaxModes * 16];    // [mode][rotation][tap] plane offsets
-};
-
-namespace {
-
-__device__ __forceinline__ float head(const float* w1, const float* b1, int f,
-                                      const float (&t)[4]) {
-  const float* w = w1 + 4 * f;
-  float s = t[0] * w[0];
-  s = s + t[1] * w[1];
-  s = s + t[2] * w[2];
-  s = s + t[3] * w[3];
-  return fmaxf(s + b1[f], 0.f);
-}
-
-template <int NF>
-constexpr size_t smem_bytes(int depth) {
-  return (size_t)(depth * NF + kHeadRows) * (NF + 8) * 2 +
-         (size_t)(NF * 4 + NF + depth * NF + kHeadRows) * 4;
-}
-
-template <int NF, int MIX>
-__global__ void __launch_bounds__(kThreads)
-plain_window_kernel(const PlainParams p) {
-  constexpr int KT = NF / 16;  // k-tiles of an activation
-  constexpr int NT = NF / 8;   // n-tiles of a hidden layer's output
-  constexpr int LD = NF + 8;   // padded shared row (bf16)
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sW = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sW6 = sW + p.depth * NF * LD;
-  float* sW1 = reinterpret_cast<float*>(sW6 + kHeadRows * LD);  // [f][k]
-  float* sB1 = sW1 + NF * 4;
-  float* sHB = sB1 + NF;
-  float* sB6 = sHB + p.depth * NF;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const long long s_lo = (long long)blockIdx.x * kSites + warp * 16 + g;
-  const long long s_hi = s_lo + 8;
-  const int out_tiles = p.v > 8 ? 2 : 1;
-
-  __shared__ int sOff[kMaxModes * 16];
-  for (int i = threadIdx.x; i < p.modes * 16; i += kThreads)
-    sOff[i] = p.offs[i];
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-
-  for (int mi = 0; mi < p.modes; ++mi) {
-    __syncthreads();  // the previous mode's weights are no longer read
-    for (int d = 0; d < p.depth; ++d)
-      copy_rows(sW + d * NF * LD, LD,
-                p.hwt + ((long long)d * p.modes + mi) * NF * NF, NF, NF);
-    copy_rows(sW6, LD, p.w6t + (long long)mi * kHeadRows * NF, kHeadRows, NF);
-    for (int i = threadIdx.x; i < NF * 4; i += kThreads)
-      sW1[i] = __bfloat162float(p.w1t[(long long)mi * NF * 4 + i]);
-    for (int i = threadIdx.x; i < NF; i += kThreads)
-      sB1[i] = __bfloat162float(p.b1[mi * NF + i]);
-    for (int i = threadIdx.x; i < p.depth * NF; i += kThreads) {
-      const int d = i / NF;
-      sHB[i] = __bfloat162float(
-          p.hb[((long long)d * p.modes + mi) * NF + (i - d * NF)]);
-    }
-    for (int i = threadIdx.x; i < kHeadRows; i += kThreads)
-      sB6[i] = __bfloat162float(p.b6[mi * kHeadRows + i]);
-    __syncthreads();
-
-    for (int r = 0; r < 4; ++r) {
-      const int* off = sOff + (mi * 4 + r) * 4;
-      float tl[4], th[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        tl[k] = tap(p.plane, p.n, s_lo + off[k]);
-        th[k] = tap(p.plane, p.n, s_hi + off[k]);
-      }
-      // head -> A fragments: a[kt] covers features 16kt .. 16kt+15
-      uint32_t a[KT][4];
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int f = 16 * kt + 8 * h + 2 * t;
-          a[kt][2 * h] = pack_bf16(head(sW1, sB1, f, tl),
-                                   head(sW1, sB1, f + 1, tl));
-          a[kt][2 * h + 1] = pack_bf16(head(sW1, sB1, f, th),
-                                       head(sW1, sB1, f + 1, th));
-        }
-      }
-      for (int d = 0; d < p.depth; ++d) {
-        const __nv_bfloat16* w = sW + d * NF * LD;
-        float c[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-        for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const __nv_bfloat16* wr = w + (nt * 8 + g) * LD + kt * 16 + 2 * t;
-            mma_bf16(c[nt], a[kt], ld_b32(wr), ld_b32(wr + 8));
-          }
-        }
-        const float* hb = sHB + d * NF;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int col = nt * 8 + 2 * t;
-          const float b0 = hb[col], b1 = hb[col + 1];
-          a[nt / 2][(nt & 1) * 2] = pack_bf16(fmaxf(c[nt][0] + b0, 0.f),
-                                              fmaxf(c[nt][1] + b1, 0.f));
-          a[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(fmaxf(c[nt][2] + b0, 0.f),
-                                                  fmaxf(c[nt][3] + b1, 0.f));
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        if (nt >= out_tiles) break;
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kt = 0; kt < KT; ++kt) {
-          const __nv_bfloat16* wr =
-              sW6 + (r * 16 + nt * 8 + g) * LD + kt * 16 + 2 * t;
-          mma_bf16(c, a[kt], ld_b32(wr), ld_b32(wr + 8));
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float o = tanhf(c[i] + sB6[r * 16 + nt * 8 + 2 * t + (i & 1)]);
-          acc[nt][i] += rintf(__fmul_rn(o, 127.f));
-        }
-      }
-    }
-  }
-
-  store_mix<MIX>(acc, p.out, p.n, s_lo, s_hi, t, p.modes, p.inv_4m);
-}
-
-template <int NF, int MIX>
-int launch(const PlainParams& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NF>(p.depth);
-  auto kern = plain_window_kernel<NF, MIX>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long blocks = (p.n + kSites - 1) / kSites;
-  kern<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <int NF>
-int dispatch_mix(const PlainParams& p, int mix, cudaStream_t s) {
-  switch (mix) {
-    case kNone: return launch<NF, kNone>(p, s);
-    case kInner: return launch<NF, kInner>(p, s);
-    case kFinal: return launch<NF, kFinal>(p, s);
-    case kFinalU8: return launch<NF, kFinalU8>(p, s);
-    case kFinalPack: return launch<NF, kFinalPack>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-// One stage of plain units over the flat plane.  out is (16, n) float32
+// One stage of plain units over the flat plane (taps = the plane, n its
+// length, offs the [mode][rotation][tap] offsets).  out is (16, n) float32
 // for mix 0 (raw acc) and 2 (round(acc/M)); (16, n) bf16 for 3 (clip of
 // round(acc/M)); (1, n) bf16 for 1 (inner mix / 255); (4, n) uint32 for 4
 // (the x4 sub-pixels packed 4 per word, byte sx of word sy = lane
@@ -216,12 +21,10 @@ int dispatch_mix(const PlainParams& p, int mix, cudaStream_t s) {
 extern "C" int plain_window(const PlainParams* p, int nf, int mix,
                             void* stream) {
   if (p->n <= 0) return 0;
-  if (p->modes < 1 || p->modes > kMaxModes || p->depth < 0 || p->v < 1 ||
-      p->v > 16 || p->n > (1LL << 40))
-    return (int)cudaErrorInvalidValue;
+  if (int e = check_params(p)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nf) {
-    case 128: return dispatch_mix<128>(*p, mix, s);
+    case 128: return launch_mix<128, kPlane, kHeadF32>(*p, mix, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

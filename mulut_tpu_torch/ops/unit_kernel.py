@@ -17,9 +17,13 @@ the kernel.
   stacks over an (N, 16*M) bf16 tap matrix and returns the raw (N, 16)
   accumulator; the mix runs in torch (`inner_mix`, `final_mix`).  Given a
   rotation-paired stack (`pair_stage_params`) it runs K9, the same kernel
-  reading the paired weights' diagonal blocks.
+  reading the paired weights' diagonal blocks.  Given a plain stack it
+  runs K8 (csrc/plain_site.cu), K3's pass over the tap matrix with the
+  head `PLAIN_HEAD` picks and a site-major mix epilogue (`SITE_MIXES`).
 - K7 `stage_ensemble_apply_t` (csrc/dense_feature.cu) runs dense stacks
-  over the feature-major (16*M, N) tap matrix, with K3's epilogues.
+  over the feature-major (16*M, N) tap matrix, with K3's epilogues; given
+  a plain stack it runs K6 (csrc/plain_feature.cu), K3's pass over that
+  matrix.
 - K11 `stage_ensemble_apply_q` (csrc/plain_w8a8.cu) runs W8A8 quantized
   plain stacks (`quant.py`) over the (N, 16*M) tap matrix, with K4's
   output and torch mix.
@@ -27,16 +31,23 @@ the kernel.
   over (N, 4) taps and returns bf16 tanh outputs.
 
 K4, K5, K7, K9 and K10 share one pass body (csrc/dense_body.cuh), so K5,
-K7 and K9 return K4's raw accumulator bit for bit.
+K7 and K9 return K4's raw accumulator bit for bit; K3, K6 and K8 share
+another (csrc/plain_body.cuh), so K6 and K8 with the float32 head return
+K3's.  The JAX package runs K6 and K8 in several schedules
+(`PLAIN_T_SCHEDULE`, `PLAIN_SCHEDULE`, `PLAIN_INTERLEAVE`), which only
+reorder the TPU's instructions and give the same outputs; the port has no
+such flags, and one kernel per contract stands for every schedule (the
+tests hold it against each).
 
 Numerics are the JAX kernels': bf16 weights and activations, float32
 products summed in float32, float32 bias/ReLU/tanh, round half to even.
-The dense kernels' and K11's head is the JAX package's broadcast form with
-every product and partial sum rounded to bf16.  K11's hidden and output
-products are exact int8 x int8 -> int32 sums, and its dequantizing
-multiply-adds are single-rounded, as XLA fuses them.  The inner stage mix
-is XLA's jitted form of `round(acc / (4M) + 127)`: one fused multiply-add
-by float32(1/(4M)).
+The dense kernels' and K11's head, and K8's under PLAIN_HEAD = "vpu", is
+the JAX package's broadcast form with every product and partial sum
+rounded to bf16; the plain kernels' default head is one float32 dot.
+K11's hidden and output products are exact int8 x int8 -> int32 sums, and
+its dequantizing multiply-adds are single-rounded, as XLA fuses them.  The
+inner stage mix is XLA's jitted form of `round(acc / (4M) + 127)`: one
+fused multiply-add by float32(1/(4M)).
 
 Each wrapper runs its plain torch version (`*_plain`) when given CPU
 tensors and launches its kernel when given CUDA tensors; it never falls
@@ -57,11 +68,13 @@ from .taps import lane_rotation_perm, mode_pad, rotated_taps
 
 #: Kernel launches per wrapper (CUDA launches only; the plain CPU versions
 #: do not count).  A run resets them to 0 to show which kernels it used.
-#: K3 and K5 share the window wrapper, K4 and K9 the tap-matrix one; each
-#: kernel has its own key.
+#: K3 and K5 share the window wrapper, K4, K8 and K9 the tap-matrix one, K6
+#: and K7 the feature-major one; each kernel has its own key ("_mxu_arch":
+#: the plain units' K6 and K8).
 LAUNCHES = {"stage_ensemble_apply_w": 0, "stage_ensemble_apply_w_dense": 0,
             "stage_ensemble_apply": 0, "stage_ensemble_apply_pair": 0,
-            "stage_ensemble_apply_t": 0, "stage_ensemble_apply_q": 0,
+            "stage_ensemble_apply_mxu_arch": 0, "stage_ensemble_apply_t": 0,
+            "stage_ensemble_apply_t_mxu_arch": 0, "stage_ensemble_apply_q": 0,
             "fused_unit_apply": 0}
 
 #: K3 epilogues (`_apply_stage_mix_t` of the JAX package): None = raw
@@ -69,10 +82,21 @@ LAUNCHES = {"stage_ensemble_apply_w": 0, "stage_ensemble_apply_w_dense": 0,
 #: "final" = round(acc / M) f32; "final_u8" = its clip to [0, 255] as bf16;
 #: "final_pack" = the x4 clip packed 4 sub-pixels per 32-bit word.
 MIXES = (None, "inner", "final", "final_u8", "final_pack")
+#: K8's site-major epilogues (`_apply_stage_mix` of the JAX package): the
+#: same values as (N, 16) rows, "inner" as one (N, 1) column; no packed form.
+SITE_MIXES = MIXES[:4]
 
-_MAX_MODES = 6            # csrc/plain_window.cu kMaxModes
+#: The head of the plain units' site-major kernel K8, read at each call as
+#: the JAX package's flag of the same name: "mxu", one float32 dot plus the
+#: float32 bias (K3's head), or "vpu", the bf16 broadcast chain (every
+#: product and partial sum rounded to bf16, then + b1 in bf16).  They are
+#: different functions, not roundings of one.
+PLAIN_HEAD = "mxu"
+HEADS = ("mxu", "vpu")
+
+_MAX_MODES = 6            # csrc/net_common.cuh kMaxModes
 _LANES = 16               # output lanes per rotation (csrc kHeadRows / 4)
-_PLAIN_NF = 128           # csrc/plain_window.cu instantiation (the artifacts)
+_PLAIN_NF = 128           # csrc/plain_*.cu instantiation (the artifacts)
 _DENSE_NF = 64            # csrc/dense_*.cu instantiation (reference)
 _W8A8_NF = 128            # csrc/plain_w8a8.cu instantiation (the artifacts)
 _CHUNK = 1 << 19          # plain versions: sites per chunk
@@ -308,13 +332,19 @@ def _bf(a):
 
 
 # ---------------------------------------------------------------------------
-# K3: plain window kernel
+# The plain-unit kernels: K3 (plane), K6 (feature-major tap matrix), K8
+# (site-major tap matrix)
 # ---------------------------------------------------------------------------
 
+_PLAIN_KEYS = ("w1t", "b1", "hwt", "hb", "w6t", "b6")
 
-def _plain_acc(st: dict, taps: torch.Tensor, n_modes: int) -> torch.Tensor:
-    """K3's passes over an (n, 16M) float32 tap matrix -> (n, 16) raw
-    accumulator (float32 matmuls over the bf16-valued operands)."""
+
+def _plain_acc(st: dict, taps: torch.Tensor, n_modes: int,
+               head: str = "mxu") -> torch.Tensor:
+    """K3's passes over an (n, 16M) tap matrix -> (n, 16) raw accumulator
+    (float32 matmuls over the bf16-valued operands); head "mxu" is the
+    float32 dot, "vpu" the bf16 chain of `_dense_head`.  Call under
+    `full_f32_matmul`."""
     w1t, b1 = _f32(st["w1t"]), _f32(st["b1"])
     hwt, hb = _f32(st["hwt"]), _f32(st["hb"])
     w6t, b6 = _f32(st["w6t"]), _f32(st["b6"])
@@ -322,8 +352,11 @@ def _plain_acc(st: dict, taps: torch.Tensor, n_modes: int) -> torch.Tensor:
     for mi in range(n_modes):
         for r in range(4):
             col = (mi * 4 + r) * 4
-            t = taps[:, col: col + 4].contiguous()
-            x = _bf(torch.relu(t @ w1t[mi].T + b1[mi]))
+            t = _f32(taps[:, col: col + 4]).contiguous()
+            if head == "mxu":
+                x = _bf(torch.relu(t @ w1t[mi].T + b1[mi]))
+            else:
+                x = _dense_head(t, w1t[mi].T, b1[mi])
             for d in range(hwt.shape[0]):
                 x = _bf(torch.relu(_f32(x) @ hwt[d, mi].T + hb[d, mi]))
             sl = slice(_LANES * r, _LANES * (r + 1))
@@ -365,11 +398,28 @@ def _check_plane(plane: torch.Tensor):
                          f"{tuple(plane.shape)} {plane.dtype}")
 
 
+def _check_stack(st: dict, keys, what: str):
+    for k in keys:
+        if k not in st:
+            raise ValueError(f"{what} stack lacks {k!r}")
+        if st[k].dtype != torch.bfloat16:
+            raise ValueError(f"{what} stack: {k} must be bfloat16, got "
+                             f"{st[k].dtype}")
+
+
+def _check_plain_stack(st: dict, n_modes: int):
+    """Keys, dtypes and shapes of a plain stack in the kernels' layout."""
+    _check_stack(st, _PLAIN_KEYS, "plain")
+    _, M, nf, _ = st["hwt"].shape
+    if M != n_modes or st["w6t"].shape != (n_modes, 4 * _LANES, nf):
+        raise ValueError(f"stack does not match {n_modes} modes")
+
+
 class _PlainDesc(ctypes.Structure):
-    """Mirror of `PlainParams` in csrc/plain_window.cu (same field order)."""
+    """Mirror of `PlainParams` in csrc/plain_body.cuh (same field order)."""
 
     _fields_ = [
-        ("plane", ctypes.c_void_p),
+        ("taps", ctypes.c_void_p),
         ("w1t", ctypes.c_void_p),
         ("b1", ctypes.c_void_p),
         ("hwt", ctypes.c_void_p),
@@ -387,21 +437,50 @@ class _PlainDesc(ctypes.Structure):
 
 
 @functools.cache
-def _plain_fn():
-    fn = library("plain_window").plain_window
-    fn.argtypes = [ctypes.POINTER(_PlainDesc), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+def _plain_fn(name: str):
+    """The C entry `name` of csrc/{name}.cu: (params, nf, mix, [head,]
+    stream) -> cudaError_t; only plain_site takes a head."""
+    fn = getattr(library(name), name)
+    fn.argtypes = ([ctypes.POINTER(_PlainDesc), ctypes.c_int, ctypes.c_int]
+                   + ([ctypes.c_int] if name == "plain_site" else [])
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_stack(st: dict, keys, what: str):
-    for k in keys:
-        if k not in st:
-            raise ValueError(f"{what} stack lacks {k!r}")
-        if st[k].dtype != torch.bfloat16:
-            raise ValueError(f"{what} stack: {k} must be bfloat16, got "
-                             f"{st[k].dtype}")
+def _launch_plain(name: str, st: dict, src: torch.Tensor, out: torch.Tensor,
+                  *, n: int, modes: int, v, mix, head=None, offs=()):
+    """Launch csrc/{name}.cu's entry on the current stream over the plain
+    stack `st` (kernels' layout), the tap source `src` (n sites) and `out`,
+    with epilogue `mix` (and, for K8, `head`)."""
+    D, _, nf, _ = st["hwt"].shape
+    if nf != _PLAIN_NF or modes > _MAX_MODES:
+        raise NotImplementedError(
+            f"the CUDA plain-unit kernels are built for nf={_PLAIN_NF} and "
+            f"at most {_MAX_MODES} modes; got nf={nf}, {modes} modes")
+    ts = [st[k] for k in _PLAIN_KEYS]
+    if not all(t.is_contiguous() for t in ts + [src]):
+        raise ValueError(f"{name} needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (st["hwt"], st["w6t"])):
+        raise ValueError("hwt and w6t must be 16-byte aligned")
+    d = _PlainDesc()
+    (d.taps, d.w1t, d.b1, d.hwt, d.hb, d.w6t, d.b6) = [
+        t.data_ptr() for t in [src] + ts]
+    d.out, d.n, d.modes, d.depth = out.data_ptr(), n, modes, D
+    d.v = _LANES if v is None else v
+    d.inv_4m = float(np.float32(1.0 / (4 * modes)))
+    for i, o in enumerate(offs):
+        d.offs[i] = o
+    args = [ctypes.byref(d), nf, MIXES.index(mix)]
+    if head is not None:
+        args.append(HEADS.index(head))
+    with torch.cuda.device(src.device):
+        err = _plain_fn(name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+# K3
 
 
 def stage_ensemble_apply_w(stacked_t: dict, plane: torch.Tensor, *,
@@ -426,42 +505,18 @@ def stage_ensemble_apply_w(stacked_t: dict, plane: torch.Tensor, *,
     if "hwt" not in stacked_t:
         return _dense_window(stacked_t, plane, modes=modes, width=width,
                              mix=mix, v=v)
-    _check_stack(stacked_t, ("w1t", "b1", "hwt", "hb", "w6t", "b6"),
-                 "plain")
+    _check_plain_stack(stacked_t, M)
     _check_plane(plane)
-    D, M_, nf, _ = stacked_t["hwt"].shape
-    if M_ != M or stacked_t["w6t"].shape != (M, 4 * _LANES, nf):
-        raise ValueError(f"stack does not match {M} modes")
-    ts = [stacked_t[k] for k in ("w1t", "b1", "hwt", "hb", "w6t", "b6")]
-    dev = _check_device(plane, *ts)
+    dev = _check_device(plane, *stacked_t.values())
     if dev.type == "cpu":
         return stage_ensemble_apply_w_plain(stacked_t, plane, modes=modes,
                                             width=width, mix=mix)
-    if nf != _PLAIN_NF or M > _MAX_MODES:
-        raise NotImplementedError(
-            f"the CUDA window kernel is built for nf={_PLAIN_NF} and at "
-            f"most {_MAX_MODES} modes; got nf={nf}, {M} modes")
-    if not all(t.is_contiguous() for t in ts + [plane]):
-        raise ValueError("stage_ensemble_apply_w needs contiguous tensors")
-    if any(t.data_ptr() % 16 for t in (stacked_t["hwt"], stacked_t["w6t"])):
-        raise ValueError("hwt and w6t must be 16-byte aligned")
     rows, dtype = _mix_rows(mix)
     n = plane.shape[0]
     out = torch.empty((rows, n), dtype=dtype, device=dev)
-    d = _PlainDesc()
-    (d.plane, d.w1t, d.b1, d.hwt, d.hb, d.w6t, d.b6) = [
-        t.data_ptr() for t in [plane] + ts]
-    d.out, d.n, d.modes, d.depth = out.data_ptr(), n, M, D
-    d.v = _LANES if v is None else v
-    d.inv_4m = float(np.float32(1.0 / (4 * M)))
-    for i, o in enumerate(o for m in plane_tap_offsets(modes, width)
-                          for r in m for o in r):
-        d.offs[i] = o
-    with torch.cuda.device(dev):
-        err = _plain_fn()(ctypes.byref(d), nf, MIXES.index(mix),
-                          torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"stage_ensemble_apply_w: CUDA error {err}")
+    offs = [o for m in plane_tap_offsets(modes, width) for r in m for o in r]
+    _launch_plain("plain_window", stacked_t, plane, out, n=n, modes=M, v=v,
+                  mix=mix, offs=offs)
     LAUNCHES["stage_ensemble_apply_w"] += 1
     return out
 
@@ -598,42 +653,67 @@ def _launch_dense(name: str, st: dict, src: torch.Tensor, out: torch.Tensor,
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
-# K4 and K9
+# K4, K8 and K9
+
+
+def _plain_head() -> str:
+    """`PLAIN_HEAD`, read at the call."""
+    if PLAIN_HEAD not in HEADS:
+        raise ValueError(f"PLAIN_HEAD must be one of {HEADS}, got "
+                         f"{PLAIN_HEAD!r}")
+    return PLAIN_HEAD
 
 
 def stage_ensemble_apply_plain(stacked_t: dict, taps: torch.Tensor, *,
-                               n_modes: int):
-    """Plain torch version of `stage_ensemble_apply` on dense stacks (K4)
-    and rotation-paired ones (K9, through their diagonal blocks)."""
-    if stacked_t["w2t"].shape[1] == 2 * stacked_t["w1t"].shape[1]:
-        stacked_t = _unpair_stage_params(stacked_t)
+                               n_modes: int, mix=None):
+    """Plain torch version of `stage_ensemble_apply`: K8 on plain stacks
+    (K3's passes with `PLAIN_HEAD`'s head, then the site-major `mix`), K4
+    on dense stacks and K9 on rotation-paired ones (through their diagonal
+    blocks)."""
+    if "hwt" in stacked_t:
+        acc_fn = functools.partial(_plain_acc, head=_plain_head())
+    else:
+        acc_fn = _dense_acc
+        if stacked_t["w2t"].shape[1] == 2 * stacked_t["w1t"].shape[1]:
+            stacked_t = _unpair_stage_params(stacked_t)
     N = taps.shape[0]
-    out = torch.empty((N, _LANES), device=taps.device)
+    cols, dtype = _mix_rows(mix)
+    out = torch.empty((N, cols), dtype=dtype, device=taps.device)
     with full_f32_matmul():
         for c0 in range(0, N, _CHUNK):
             tc = taps[c0: c0 + _CHUNK]
-            out[c0: c0 + tc.shape[0]] = _dense_acc(stacked_t, tc, n_modes)
+            acc = acc_fn(stacked_t, tc, n_modes)
+            out[c0: c0 + tc.shape[0]] = _apply_mix(acc.T, mix, n_modes).T
     return out
 
 
-def stage_ensemble_apply(stacked_t: dict, taps: torch.Tensor, *,
-                         n_modes: int, v: int | None = None):
-    """(N, 16*M) bf16 tap matrix -> (N, 16) float32 ensemble over a dense
-    stack: the sum over modes and rotations of round(127 * unit(taps)),
-    lanes already un-rotated.  stacked_t: `transpose_plain_stack` of a
-    dense `stack_stage_params` (bf16), K4; or its `pair_stage_params`,
-    K9.  Column block (mi*4 + r)*4 .. +4 holds pass (mi, r)'s 4 taps.  v:
-    as in `stage_ensemble_apply_w`.
+def _check_taps(taps: torch.Tensor, n_modes: int):
+    if (taps.dim() != 2 or taps.shape[1] != 16 * n_modes
+            or taps.dtype != torch.bfloat16):
+        raise ValueError(f"taps must be (N, {16 * n_modes}) bfloat16, got "
+                         f"{tuple(taps.shape)} {taps.dtype}")
 
-    A quantized stack (`quant.kernel_stack`, key "hwqt") goes to K11,
-    `stage_ensemble_apply_q`, as the JAX entry routes it.  The site-major
-    plain stacks (K8) that share this JAX entry are not ported: they raise
-    NotImplementedError.
+
+def stage_ensemble_apply(stacked_t: dict, taps: torch.Tensor, *,
+                         n_modes: int, v: int | None = None, mix=None):
+    """(N, 16*M) bf16 tap matrix -> (N, 16) ensemble: the sum over modes
+    and rotations of round(127 * unit(taps)), lanes already un-rotated.
+    Column block (mi*4 + r)*4 .. +4 holds pass (mi, r)'s 4 taps.  v: as
+    in `stage_ensemble_apply_w`.
+
+    stacked_t: `transpose_plain_stack` of a `stack_stage_params` (bf16).
+    A dense stack runs K4 and its `pair_stage_params` K9; both return the
+    raw float32 accumulator (mix None only).  A plain stack runs K8 with
+    the head `PLAIN_HEAD` names and the site-major epilogue `mix` (one of
+    `SITE_MIXES`): (N, 16) float32 for None and "final", (N, 16) bf16 for
+    "final_u8", (N, 1) bf16 for "inner".  A quantized stack
+    (`quant.kernel_stack`, key "hwqt") goes to K11,
+    `stage_ensemble_apply_q`, as the JAX entry routes it.
     """
     if "hwt" in stacked_t:
-        raise NotImplementedError(
-            "plain stacks run the window kernel (stage_ensemble_apply_w); "
-            "the site-major plain schedules (K8) are not ported")
+        return _plain_site(stacked_t, taps, n_modes=n_modes, v=v, mix=mix)
+    if mix is not None:
+        raise ValueError("mix is only supported for plain (mxu-arch) stacks")
     if "hwqt" in stacked_t:
         return stage_ensemble_apply_q(stacked_t, taps, n_modes=n_modes, v=v)
     if "hwq" in stacked_t:
@@ -641,10 +721,7 @@ def stage_ensemble_apply(stacked_t: dict, taps: torch.Tensor, *,
             "a quantized stack in the JAX package's layout (hwq); K11 "
             "reads quant.kernel_stack's layout (hwqt)")
     _check_stack(stacked_t, _DENSE_KEYS, "dense")
-    if (taps.dim() != 2 or taps.shape[1] != 16 * n_modes
-            or taps.dtype != torch.bfloat16):
-        raise ValueError(f"taps must be (N, {16 * n_modes}) bfloat16, got "
-                         f"{tuple(taps.shape)} {taps.dtype}")
+    _check_taps(taps, n_modes)
     _, paired = _check_dense_stack(stacked_t, n_modes, paired_ok=True)
     dev = _check_device(taps, *(stacked_t[k] for k in _DENSE_KEYS))
     if dev.type == "cpu":
@@ -657,6 +734,28 @@ def stage_ensemble_apply(stacked_t: dict, taps: torch.Tensor, *,
                   v=_LANES if v is None else v, arg=int(paired))
     LAUNCHES["stage_ensemble_apply_pair" if paired
              else "stage_ensemble_apply"] += 1
+    return out
+
+
+def _plain_site(st: dict, taps: torch.Tensor, *, n_modes: int, v, mix):
+    """`stage_ensemble_apply` over a plain stack (K8)."""
+    if mix not in SITE_MIXES:
+        raise ValueError(f"the site-major plain kernel's mix must be one of "
+                         f"{SITE_MIXES}, got {mix!r}")
+    head = _plain_head()
+    _check_plain_stack(st, n_modes)
+    _check_taps(taps, n_modes)
+    dev = _check_device(taps, *st.values())
+    if dev.type == "cpu":
+        return stage_ensemble_apply_plain(st, taps, n_modes=n_modes, mix=mix)
+    if taps.data_ptr() % 8:
+        raise ValueError("taps must be 8-byte aligned")
+    cols, dtype = _mix_rows(mix)
+    N = taps.shape[0]
+    out = torch.empty((N, cols), dtype=dtype, device=dev)
+    _launch_plain("plain_site", st, taps, out, n=N, modes=n_modes, v=v,
+                  mix=mix, head=head)
+    LAUNCHES["stage_ensemble_apply_mxu_arch"] += 1
     return out
 
 
@@ -684,19 +783,21 @@ def _dense_window(st: dict, plane: torch.Tensor, *, modes: str, width: int,
     return out
 
 
-# K7
+# K6 and K7
 
 
 def stage_ensemble_apply_t_plain(stacked_t: dict, taps_t: torch.Tensor, *,
                                  n_modes: int, mix=None) -> torch.Tensor:
-    """Plain torch version of `stage_ensemble_apply_t` (same contract)."""
+    """Plain torch version of `stage_ensemble_apply_t` (same contract, K6
+    or K7 by the stack)."""
+    acc_fn = _plain_acc if "hwt" in stacked_t else _dense_acc
     n = taps_t.shape[1]
     rows, dtype = _mix_rows(mix)
     out = torch.empty((rows, n), dtype=dtype, device=taps_t.device)
     with full_f32_matmul():
         for c0 in range(0, n, _CHUNK):
             tc = taps_t[:, c0: c0 + _CHUNK].T
-            acc = _dense_acc(stacked_t, tc, n_modes)
+            acc = acc_fn(stacked_t, tc, n_modes)
             out[:, c0: c0 + tc.shape[0]] = _apply_mix(acc.T, mix, n_modes)
     return out
 
@@ -704,28 +805,33 @@ def stage_ensemble_apply_t_plain(stacked_t: dict, taps_t: torch.Tensor, *,
 def stage_ensemble_apply_t(stacked_t: dict, taps_t: torch.Tensor, *,
                            n_modes: int, mix=None, v: int | None = None):
     """(16*M, N) bf16 feature-major tap matrix (row (mi*4 + r)*4 + k holds
-    pass (mi, r)'s tap k) -> (rows, N) per `MIXES` over a dense stack
-    (K7): `stage_ensemble_apply`'s function with `stage_ensemble_apply_w`'s
-    epilogues.  Plain stacks over this matrix are K6, not ported yet.
+    pass (mi, r)'s tap k) -> (rows, N) per `MIXES`: the function of
+    `stage_ensemble_apply` with `stage_ensemble_apply_w`'s epilogues, over
+    a plain stack (K6: K3's passes, float32 head) or a dense one (K7).
     """
-    if "hwt" in stacked_t:
-        raise NotImplementedError(
-            "plain stacks over the feature-major tap matrix (K6, "
-            "MULUT_PLAIN_WINDOW=0) are the next slice of the port")
     if mix not in MIXES:
         raise ValueError(f"mix must be one of {MIXES}, got {mix!r}")
-    _check_dense_stack(stacked_t, n_modes)
+    plain = "hwt" in stacked_t
+    if plain:
+        _check_plain_stack(stacked_t, n_modes)
+    else:
+        _check_dense_stack(stacked_t, n_modes)
     if (taps_t.dim() != 2 or taps_t.shape[0] != 16 * n_modes
             or taps_t.dtype != torch.bfloat16):
         raise ValueError(f"taps_t must be ({16 * n_modes}, N) bfloat16, got "
                          f"{tuple(taps_t.shape)} {taps_t.dtype}")
-    dev = _check_device(taps_t, *(stacked_t[k] for k in _DENSE_KEYS))
+    dev = _check_device(taps_t, *stacked_t.values())
     if dev.type == "cpu":
         return stage_ensemble_apply_t_plain(stacked_t, taps_t,
                                             n_modes=n_modes, mix=mix)
     rows, dtype = _mix_rows(mix)
     n = taps_t.shape[1]
     out = torch.empty((rows, n), dtype=dtype, device=dev)
+    if plain:
+        _launch_plain("plain_feature", stacked_t, taps_t, out, n=n,
+                      modes=n_modes, v=v, mix=mix)
+        LAUNCHES["stage_ensemble_apply_t_mxu_arch"] += 1
+        return out
     _launch_dense("dense_feature", stacked_t, taps_t, out, n=n,
                   modes=n_modes, v=_LANES if v is None else v,
                   arg=MIXES.index(mix))

@@ -21,6 +21,7 @@ import os
 import numpy as np
 import torch
 
+from ..models import srnet
 from ..models.srnet import (
     srnets_predict,
     srnets_predict_fast,
@@ -223,10 +224,12 @@ class NetEvaluator:
     """Deploys the trained MuLUT network directly (no LUT caching).
 
     `fast=True` runs the tap-MLPs in bf16 through one stage-ensemble
-    kernel launch per stage: the window kernel K3 for plain (mxu-arch)
-    units; for dense-concat units the kernel that `models.srnet`'s flags
-    pick (K4 by default, K5 or K7 under `DENSE_LAYOUT = "feature"`), or
-    K9 when MULUT_PAIRED_KERNEL=1 is set at construction.
+    kernel launch per stage, the kernel that `models.srnet`'s flags pick
+    at each call: for plain (mxu-arch) units the window kernel K3 by
+    default, K6 with `PLAIN_WINDOW` off, or K8 under `PLAIN_LAYOUT =
+    "site"` (its head per `ops.unit_kernel.PLAIN_HEAD`); for dense-concat
+    units K4 by default, K5 or K7 under `DENSE_LAYOUT = "feature"`, or K9
+    when MULUT_PAIRED_KERNEL=1 is set at construction.
     `quant` (implies `fast`; plain units only, else ValueError) quantizes
     the units to W8A8 at construction (`ops.quant`, calibrated from the
     float32 params) and runs the int8 kernel K11 per stage: True or "int"
@@ -256,9 +259,6 @@ class NetEvaluator:
         self.device = _resolve_device(device, "NetEvaluator")
         self.params = params_from_numpy(params, self.device)
         self.stacked = None
-        #: final_clip of the fused-YUV luma run (plain stacks only): the
-        #: kernel epilogue clips and, at x4, packs the luma plane
-        self._luma_clip = None
         if quant:
             self.stacked = quantize_srnets_for_fast(
                 self.params, modes=modes, stages=stages, scale=scale,
@@ -269,8 +269,19 @@ class NetEvaluator:
             self.stacked = stack_srnets_for_fast(
                 self.params, modes=modes, stages=stages, scale=scale,
                 paired=os.environ.get("MULUT_PAIRED_KERNEL", "0") == "1")
-            if any("hwt" in st for st in self.stacked):
-                self._luma_clip = "pack" if scale == 4 else True
+        self._plain = fast and not quant and any(
+            "hwt" in st for st in self.stacked)
+
+    @property
+    def _luma_clip(self):
+        """final_clip of the fused-YUV luma run (plain bf16 stacks only,
+        else None): the kernel epilogue clips the luma plane and, at x4 on
+        the feature-major routes, packs it; read at each call, as the JAX
+        package reads PLAIN_LAYOUT."""
+        if not self._plain:
+            return None
+        return ("pack" if srnet.PLAIN_LAYOUT == "feature" and self.scale == 4
+                else True)
 
     @classmethod
     def from_checkpoint(cls, path: str, *, stages: int = 2,

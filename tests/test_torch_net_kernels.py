@@ -44,6 +44,8 @@ def _pin_jax_routes(monkeypatch):
     monkeypatch.setattr(jsn, "PLAIN_LAYOUT", "feature")
     monkeypatch.setattr(jsn, "DENSE_LAYOUT", "site")
     monkeypatch.setattr(juk, "PLAIN_T_SCHEDULE", "rs")
+    monkeypatch.setattr(tsn, "PLAIN_WINDOW", True)
+    monkeypatch.setattr(tsn, "PLAIN_LAYOUT", "feature")
     for f in (juk.stage_ensemble_apply, juk.stage_ensemble_apply_w):
         f.clear_cache()
     yield
@@ -245,19 +247,25 @@ def test_wrappers_check_inputs(monkeypatch):
         tuk.stage_ensemble_apply_w(plain_t, plane.to("meta"), modes=MODES,
                                    width=10)
     taps = torch.zeros((5, 48), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="window kernel"):
-        tuk.stage_ensemble_apply(plain_t, taps, n_modes=3)
+    # plain stacks over the site-major tap matrix run K8, which has no
+    # packed epilogue
+    out = tuk.stage_ensemble_apply(plain_t, taps, n_modes=3)
+    assert out.shape == (5, 16) and out.dtype == torch.float32
+    with pytest.raises(ValueError, match="mix"):
+        tuk.stage_ensemble_apply(plain_t, taps, n_modes=3, mix="final_pack")
     dp = params_from_numpy(_params("dense", 8, 7), "cpu")
     dense = tuk.transpose_plain_stack(
         tuk.stack_stage_params(dp, stage=2, modes=MODES, upscale=4))
-    # plain stacks with PLAIN_WINDOW off take the tap-matrix kernel K6,
-    # which is not ported
-    with pytest.raises(NotImplementedError, match="K6"):
-        tuk.stage_ensemble_apply_t(plain_t, taps.T.contiguous(), n_modes=3)
-    with pytest.raises(NotImplementedError, match="K6"):
-        monkeypatch.setattr(tsn, "PLAIN_WINDOW", False)
-        tsn.srnets_predict_fast([plain_t, plain_t], torch.zeros(1, 1, 5, 6),
-                                modes=MODES, stages=2, scale=4)
+    with pytest.raises(ValueError, match="mix"):
+        tuk.stage_ensemble_apply(dense, taps, n_modes=3, mix="final")
+    # plain stacks with PLAIN_WINDOW off take the tap-matrix kernel K6
+    out = tuk.stage_ensemble_apply_t(plain_t, taps.T.contiguous(), n_modes=3)
+    assert out.shape == (16, 5) and out.dtype == torch.float32
+    monkeypatch.setattr(tsn, "PLAIN_WINDOW", False)
+    out = tsn.srnets_predict_fast([plain_t, plain_t], torch.zeros(1, 1, 5, 6),
+                                  modes=MODES, stages=2, scale=4)
+    assert out.shape == (1, 1, 20, 24)
+    assert not any(tuk.LAUNCHES.values())
     # quantized stacks go to K11 in its own layout (hwqt); the JAX
     # package's layout (hwq) is refused
     with pytest.raises(ValueError, match="hwqt"):
