@@ -10,17 +10,24 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  Phases:
   2. build of the CUDA kernels from `mulut_tpu_torch/ops/csrc/`;
   3. `LutEvaluator` construction: x4, 2 stages, modes sdy, interval 4
      (17**4-row int8 LUTs, random from seed 0), tables built on the card;
-  4. a recording run of the cascade on the batch, which keeps every kernel
-     call's inputs; each kernel is then compared byte for byte with its
-     plain torch version on those inputs;
+  4. a recording run of the cascade on the batch, which keeps every
+     kernel call's inputs; each call of the window-read simplex
+     contraction (`window_fold_contract`, 6 per cascade) is compared byte
+     for byte with its plain torch version and with the JAX-boundary
+     contraction (`gather_fold_contract`) run on base and 16-corner weights
+     built from the same planes, itself compared with its plain version;
+     the tail kernel with its plain version;
   5. `LutEvaluator.upscale_batch` on 8 x 270 x 480 x 3 uint8 frames (the
      repo's bench shape) with every launch counter set to 0 just before and
-     read just after; one frame is checked byte-equal against the port's
-     CPU path;
+     read just after (6 window contractions, 1 tail, no
+     `gather_fold_contract`) and `simplex.corner_lams_t` counted (no
+     call); one frame is checked byte-equal against the port's CPU path;
+     then intervals 5 and 6 (random LUTs of their sizes) on a 2 x 135 x 240
+     crop, card against the CPU path, byte-equal;
   6. timings with CUDA events: batch ms and output MPix/s, and per kernel
      call site its time, its bound, its plain version's time and, for the
-     contraction, one `torch.einsum` over the gathered rows (a yardstick,
-     never called by the port).
+     JAX-boundary contraction, one `torch.einsum` over the gathered rows (a
+     yardstick, never called by the port); a profile of the cascade.
 
 Then net mode (`NetEvaluator(fast=True)`, the tap-MLP units run directly):
 
@@ -92,7 +99,8 @@ batch):
      yardstick), the route's `srnets_predict_fast` device ms beside the K3
      route's, and `upscale_batch` host ms.
 
-Prints a `{"kernels": [...]}` line (K1-K11; K8 with the float32 head) and
+Prints a `{"kernels": [...]}` line (K1 in both forms, K2-K11; K8 with the
+float32 head) and
 ends with one `{"ok": true, "device": {...}}` line.  Any failed phase
 raises.
 """
@@ -112,6 +120,7 @@ STAGES, MODES, SCALE, INTERVAL = 2, "sdy", 4, 4
 BATCH, H, W = 8, 270, 480
 HBM_BYTES_PER_MS = 3.35e9          # H100 SXM: 3.35 TB/s
 SOURCE_K1 = "mulut_tpu_torch/ops/csrc/fold_contract.cu"
+SOURCE_K1W = "mulut_tpu_torch/ops/csrc/window_fold.cu"
 SOURCE_K2 = "mulut_tpu_torch/ops/csrc/tail_assemble.cu"
 REPLACES_K1 = "mulut_tpu/ops/tail_kernel.py:181"
 REPLACES_K2 = "mulut_tpu/ops/tail_kernel.py:546"
@@ -162,10 +171,10 @@ CROP_H, CROP_W = 135, 240
 K10_ABS = 2
 
 
-def _random_luts(rng):
-    """Seed-0 random int8 LUTs of the shipped shapes (as bench.py makes them
-    when the reference LUTs are absent)."""
-    L = 2 ** (8 - INTERVAL) + 1
+def _random_luts(rng, interval=INTERVAL):
+    """Random int8 LUTs of the shipped shapes (as bench.py makes them when
+    the reference LUTs are absent)."""
+    L = 2 ** (8 - interval) + 1
     luts = {}
     for s in range(STAGES):
         v = SCALE * SCALE if s + 1 == STAGES else 1
@@ -173,6 +182,25 @@ def _random_luts(rng):
             luts[f"s{s + 1}_{m}"] = rng.integers(
                 -127, 128, (L ** 4, v), dtype=np.int64).astype(np.int8)
     return luts
+
+
+def _k128_of(torch, tab):
+    """An int8 (R, 16) table spread to the (R, 128) k128 layout (corner m's
+    value in lane 8m, other lanes zero): the JAX-boundary K1 takes u >= 8."""
+    t = torch.zeros((tab.shape[0], 16, 8), dtype=torch.int8,
+                    device=tab.device)
+    t[..., 0] = tab
+    return t.reshape(-1, 128)
+
+
+def _boundary_inputs(tk, sx, xp, kw):
+    """Per rotation of a recorded `window_fold_contract` call, the base
+    index and 16-corner weights of its sites, 8 junk sites appended: the
+    JAX-boundary K1's inputs (`gather_fold_contract`)."""
+    return [(base, sx.corner_lams_t(*fr, interval=kw["interval"]))
+            for base, fr in tk.window_base_fracs(
+                xp, taps=kw["taps"], origin=kw["origin"], grid=kw["grid"],
+                interval=kw["interval"])]
 
 
 def _cuda_ms(torch, fn, reps: int) -> float:
@@ -1189,6 +1217,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from mulut_tpu_torch.ops import _build
+    from mulut_tpu_torch.ops import simplex as sx
     from mulut_tpu_torch.ops import tail_kernel as tk
     from mulut_tpu_torch.pipelines.evaluate import LutEvaluator
 
@@ -1237,25 +1266,54 @@ def main() -> int:
             interval=INTERVAL)
 
     # 4. kernels against their plain versions, on the main path's inputs
-    k1_calls, k2_calls = _record_calls(
-        tk, ("gather_fold_contract", "tail_assemble"), cascade)
-    sites = ["s1_s", "s1_d", "s2_s", "s2_d"] + [f"s2_y r{r}" for r in range(4)]
-    if len(k1_calls) != len(sites) or len(k2_calls) != 1:
-        raise RuntimeError(f"recorded {len(k1_calls)} contraction and "
-                           f"{len(k2_calls)} tail calls; expected 8 and 1")
-    k1_err = 0.0
-    for site, ((tab, base, wt), kw1) in zip(sites, k1_calls):
-        C, u = kw1["C"], kw1["u"]
-        got = tk.gather_fold_contract(tab, base, wt, C=C, u=u)
-        want = tk.gather_fold_contract_plain(tab, base, wt, C=C, u=u)
+    wf_calls, k2_calls = _record_calls(
+        tk, ("window_fold_contract", "tail_assemble"), cascade)
+    sites = ["s1_s", "s1_d", "s1_y", "s2_s", "s2_d", "s2_y"]
+    if len(wf_calls) != len(sites) or len(k2_calls) != 1:
+        raise RuntimeError(f"recorded {len(wf_calls)} contraction and "
+                           f"{len(k2_calls)} tail calls; expected "
+                           f"{len(sites)} and 1")
+    wf_err = k1_err = 0.0
+    k1_calls = []     # the JAX-boundary K1's inputs, from the same planes
+    for site, ((tab, xp), kw1) in zip(sites, wf_calls):
+        got = tk.window_fold_contract(tab, xp, **kw1)
+        want = tk.window_fold_contract_plain(tab, xp, **kw1)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        k1_err = max(k1_err, err)
+        wf_err = max(wf_err, err)
         if not torch.equal(got, want):
-            raise RuntimeError(f"gather_fold_contract differs at {site}: "
+            raise RuntimeError(f"window_fold_contract differs at {site}: "
                                f"max abs err {err}")
-        print(f"K1 {site}: (C={C}, u={u}, Np={base.shape[0]}) "
-              f"byte-equal to plain")
+        u = kw1["u"]
+        old = []
+        for r, (base, wt) in enumerate(_boundary_inputs(tk, sx, xp, kw1)):
+            ktab, ku = (tab, u) if u > 1 else (_k128_of(torch, tab), 8)
+            k1 = tk.gather_fold_contract(ktab, base, wt, C=16, u=ku)
+            k1_plain = tk.gather_fold_contract_plain(ktab, base, wt, C=16,
+                                                     u=ku)
+            torch.cuda.synchronize()
+            err = (k1 - k1_plain).abs().max().item()
+            k1_err = max(k1_err, err)
+            if not torch.equal(k1, k1_plain):
+                raise RuntimeError(f"gather_fold_contract differs at {site} "
+                                   f"r{r}: max abs err {err}")
+            old.append(k1)
+            if u > 1:
+                label = site if len(kw1["taps"]) == 1 else f"{site} r{r}"
+                k1_calls.append((label, tab, base, wt, u))
+        if u > 1:
+            same = torch.equal(got, torch.stack(old))
+        else:
+            same = torch.equal(got, sum(o[0, :got.numel()] for o in old)
+                               .to(torch.int32))
+        if not same:
+            raise RuntimeError(f"window_fold_contract differs from the "
+                               f"JAX-boundary K1 at {site}")
+        print(f"window_fold_contract {site}: (u={u}, rotations="
+              f"{len(kw1['taps'])}, grid {xp.shape[0]} x {kw1['grid']}, "
+              f"out {tuple(got.shape)} {got.dtype}) byte-equal to plain and "
+              f"to gather_fold_contract on the same planes (itself "
+              f"byte-equal to plain)")
     (folded, quads), kw = k2_calls[0]
     got = tk.tail_assemble(folded, quads, **kw)
     bc = int(np.prod(kw["lead"]))
@@ -1272,17 +1330,31 @@ def main() -> int:
     # 5. the main path through the entry point, counted
     from mulut_tpu_torch.ops import unit_kernel as uk
 
+    main_launches = {"gather_fold_contract": 0,
+                     "window_fold_contract": len(sites), "tail_assemble": 1}
+    lams = {"corner_lams_t": 0}
+    corner_lams_t = sx.corner_lams_t
+
+    def counted_lams(*args, **kw_):
+        lams["corner_lams_t"] += 1
+        return corner_lams_t(*args, **kw_)
+
     _reset(tk.LAUNCHES, uk.LAUNCHES)
-    t0 = time.perf_counter()
-    out = ev.upscale_batch(imgs)
-    first_s = time.perf_counter() - t0
+    sx.corner_lams_t = counted_lams
+    try:
+        t0 = time.perf_counter()
+        out = ev.upscale_batch(imgs)
+        first_s = time.perf_counter() - t0
+    finally:
+        sx.corner_lams_t = corner_lams_t
     launches = dict(tk.LAUNCHES)
     print(f"upscale_batch: {imgs.shape} -> {out.shape} {out.dtype}, "
-          f"launches {launches}")
-    if launches != {"gather_fold_contract": 8, "tail_assemble": 1} or any(
-            uk.LAUNCHES.values()):
-        raise RuntimeError(f"main path launches {launches}; expected 8 "
-                           "gather_fold_contract and 1 tail_assemble")
+          f"launches {launches}, corner_lams_t calls {lams['corner_lams_t']}")
+    if (launches != main_launches or any(uk.LAUNCHES.values())
+            or lams["corner_lams_t"]):
+        raise RuntimeError(f"main path launches {launches} and "
+                           f"{lams['corner_lams_t']} corner_lams_t calls; "
+                           f"expected {main_launches} and none")
     if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or out.dtype != np.uint8:
         raise RuntimeError(f"bad output {out.shape} {out.dtype}")
     t0 = time.perf_counter()
@@ -1294,6 +1366,21 @@ def main() -> int:
         raise RuntimeError("frame 0 differs between the card and the CPU "
                            f"path ({int((ref != out[0]).sum())} bytes)")
     print("frame 0 byte-equal to the CPU path")
+    crops = np.ascontiguousarray(imgs[:2, :CROP_H, :CROP_W])
+    for interval in (5, 6):
+        luts_i = _random_luts(np.random.default_rng(interval), interval)
+        cfg = dict(stages=STAGES, modes=MODES, scale=SCALE, interval=interval)
+        _reset(tk.LAUNCHES)
+        got_i = LutEvaluator(luts_i, **cfg).upscale_batch(crops)
+        launches_i = dict(tk.LAUNCHES)
+        want_i = LutEvaluator(luts_i, **cfg, device="cpu").upscale_batch(crops)
+        if launches_i != main_launches or not np.array_equal(got_i, want_i):
+            raise RuntimeError(
+                f"interval {interval}: launches {launches_i}, "
+                f"{int((got_i != want_i).sum())} bytes differ from the CPU "
+                "path")
+        print(f"interval {interval}: upscale_batch {crops.shape} byte-equal "
+              f"to the CPU path, launches {launches_i}")
 
     # 6. timings
     reps = 10
@@ -1309,10 +1396,37 @@ def main() -> int:
     print(f"lut_cascade_packed on the card (CUDA events): {dev_ms:.3f} "
           f"ms/batch = {mpix / dev_ms * 1e3:.2f} MPix/s")
 
+    wf = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for site, ((tab, xp), kw1) in zip(sites, wf_calls):
+        u, out_w = kw1["u"], tk.window_fold_contract(tab, xp, **kw1)
+        n = xp.shape[0] * kw1["grid"][0] * kw1["grid"][1]
+        pairs = []
+        for base, wt in _boundary_inputs(tk, sx, xp, kw1):
+            if u == 1:              # no junk sites
+                base, wt = base[:n], wt[:, :n]
+            m = torch.arange(16, device=dev).view(16, 1)
+            pairs.append(torch.unique((base.long() * 16 + m)[wt > 0]))
+        n_pairs = torch.unique(torch.cat(pairs)).numel()
+        nbytes = xp.numel() * 4 + n_pairs * u + out_w.numel() * 4
+        t = {
+            "ms": _cuda_ms(torch, lambda: tk.window_fold_contract(
+                tab, xp, **kw1), 20),
+            "plain_ms": _cuda_ms(torch, lambda: tk.window_fold_contract_plain(
+                tab, xp, **kw1), 3),
+            "bound_ms": nbytes / HBM_BYTES_PER_MS,
+        }
+        for key in wf:
+            wf[key] += t[key]
+        print(f"window_fold_contract {site}: u={u} rotations="
+              f"{len(kw1['taps'])} sites={n} row_corner_pairs={n_pairs} "
+              f"bytes={nbytes} "
+              + " ".join(f"{k}={v:.4f}" for k, v in t.items())
+              + " library_ms=none (no single torch call computes it)")
+    del out_w
+
     k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    for site, ((tab, base, wt), kw1) in zip(sites, k1_calls):
-        C, u = kw1["C"], kw1["u"]
-        Np = base.shape[0]
+    for site, tab, base, wt, u in k1_calls:
+        C, Np = 16, base.shape[0]
         rows = torch.unique(base).numel()
         nbytes = rows * C * u + 4 * Np + 4 * C * Np + 4 * u * Np
         t = {
@@ -1327,7 +1441,7 @@ def main() -> int:
         }
         for key in k1:
             k1[key] += t[key]
-        print(f"K1 {site}: C={C} u={u} Np={Np} rows={rows} "
+        print(f"gather_fold_contract {site}: C={C} u={u} Np={Np} rows={rows} "
               + " ".join(f"{k}={v:.4f}" for k, v in t.items())
               + f" gathered_bytes={Np * C * u}")
     nmodes = len(folded) + len(quads)
@@ -1344,7 +1458,7 @@ def main() -> int:
                                           for k, v in k2.items())
           + " library_ms=none (no single torch call computes it)")
     _profile(torch, cascade, dev_ms)
-    del ev, ev_cpu, k1_calls, k2_calls, folded, quads, kw
+    del ev, ev_cpu, wf_calls, k1_calls, k2_calls, folded, quads, kw
     torch.cuda.empty_cache()
 
     net_entries = _net_mode(torch, tk, imgs)
@@ -1353,6 +1467,12 @@ def main() -> int:
     net_entries += _plain_routes(torch, tk, imgs)
 
     print(json.dumps({"kernels": [
+        {"name": "window_fold_contract", "route": "cuda",
+         "source": SOURCE_K1W, "replaces": REPLACES_K1,
+         "launches": launches["window_fold_contract"],
+         "max_abs_err": wf_err, "ms": wf["ms"], "plain_ms": wf["plain_ms"],
+         "bound_ms": wf["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
         {"name": "gather_fold_contract", "route": "cuda",
          "source": SOURCE_K1, "replaces": REPLACES_K1,
          "launches": launches["gather_fold_contract"],

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fold_contract", "tail_assemble", "plain_window",
+SOURCES = ("fold_contract", "window_fold", "tail_assemble", "plain_window",
            "plain_feature", "plain_site", "dense_ensemble", "dense_window",
            "dense_feature", "dense_unit", "plain_w8a8")
 NVCC_FLAGS = (

@@ -1,13 +1,18 @@
-"""The packed LUT cascade, with its two CUDA kernels.
+"""The packed LUT cascade, with its CUDA kernels.
 
-Torch twin of `mulut_tpu.ops.tail_kernel`.  The cascade's inner stages and
-the final stage's per-mode contractions run the gather + weighted
-group-fold kernel (`gather_fold_contract`, csrc/fold_contract.cu); the
-final stage's rotation un-shifts, quad-lane un-rotation, exact stage mix,
+Torch twin of `mulut_tpu.ops.tail_kernel`.  Every contraction of the
+cascade (both stages, every mode and rotation) runs the window-read simplex
+contraction (`window_fold_contract`, csrc/window_fold.cu): it reads the
+edge-padded plane at the mode's taps and builds the base index, the
+simplex weights and the five live corners of each site itself.  The final
+stage's rotation un-shifts, quad-lane un-rotation, exact stage mix,
 PixelShuffle interleave and uint8 packing run in one pass of
 `tail_assemble` (csrc/tail_assemble.cu).  The output is packed 32-bit words
 whose bytes are the row-major uint8 image (`unpack_u32`), byte-identical
-to the JAX package (ref behavior: sr/4_test_lut.py:263-306).
+to the JAX package (ref behavior: sr/4_test_lut.py:263-306).  The JAX
+boundary's form of the contraction, `gather_fold_contract` over a base
+index and (C, N) weights (csrc/fold_contract.cu), stays for callers that
+hold those.
 
 Each kernel wrapper runs its plain torch version when given CPU tensors
 and launches the kernel when given CUDA tensors; it never falls back from
@@ -37,10 +42,12 @@ from .taps import (
 
 _MAX_MODES = 6          # csrc/tail_assemble.cu MULUT_MAX_MODES
 _FOLD_LANES = (8, 16, 64)
+_WINDOW_LANES = (1, 8, 16, 64)
 
 #: Kernel launches per wrapper (CUDA launches only; the plain CPU versions
 #: do not count).  A run resets them to 0 to show which kernels it used.
-LAUNCHES = {"gather_fold_contract": 0, "tail_assemble": 0}
+LAUNCHES = {"gather_fold_contract": 0, "window_fold_contract": 0,
+            "tail_assemble": 0}
 
 
 def _pad128(n: int) -> int:
@@ -131,29 +138,161 @@ def gather_fold_contract(tab, base, wt, *, C: int, u: int):
     return out
 
 
-def _contract_t(tab, base, fr, *, C: int, u: int, interval: int):
-    """(u, Np) contraction of the rows `tab[base]` with the 16-corner
-    weights of the (pre-padded) fracs."""
-    if C != 16:
-        raise NotImplementedError(
-            "rank-expanded (5-corner) tables are a later slice; the packed "
-            "cascade here takes the 16-corner formats")
-    wt = sx.corner_lams_t(*fr, interval=interval)
-    return gather_fold_contract(tab, base, wt, C=C, u=u)
+# ---------------------------------------------------------------------------
+# K1, redesigned: the window-read simplex contraction
+# ---------------------------------------------------------------------------
 
 
-def _contract(tab, base, fr, *, C: int, v: int, interval: int):
-    """(Np, v) view of `_contract_t` (a transpose, no copy; `tail_assemble`
-    reads it through its strides)."""
-    return _contract_t(tab, base, fr, C=C, u=v, interval=interval).T
+class _WindowDesc(ctypes.Structure):
+    """Mirror of `WindowDesc` in csrc/window_fold.cu (same field order)."""
+
+    _fields_ = [
+        ("tap", (ctypes.c_longlong * 4) * 4),
+        ("n_sites", ctypes.c_longlong),
+        ("n_rot", ctypes.c_int),
+        ("he", ctypes.c_int),
+        ("we", ctypes.c_int),
+        ("hp", ctypes.c_int),
+        ("wp", ctypes.c_int),
+        ("oy", ctypes.c_int),
+        ("ox", ctypes.c_int),
+        ("interval", ctypes.c_int),
+        ("L", ctypes.c_int),
+        ("n_rows", ctypes.c_int),
+    ]
+
+
+@functools.cache
+def _window_fn():
+    fn = library("window_fold").window_fold_contract
+    fn.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.POINTER(_WindowDesc), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _window_planes(xp, taps, origin, grid):
+    """Per rotation, the four (lead, he, we) tap planes of the sites."""
+    (oy, ox), (he, we) = origin, grid
+    return [[xp[:, oy + dy: oy + dy + he, ox + dx: ox + dx + we]
+             for dy, dx in rt] for rt in taps]
+
+
+def window_base_fracs(xp, *, taps, origin, grid, interval: int):
+    """Per rotation, the (Np+8,) base index and four fracs of the sites, the
+    8 junk sites appended: the inputs the JAX boundary
+    (`gather_fold_contract` with `corner_lams_t` weights) takes."""
+    return [_pad8_base_fracs(*sx._base_and_fracs(planes, interval=interval))
+            for planes in _window_planes(xp, taps, origin, grid)]
+
+
+def window_fold_contract_plain(tab, xp, *, taps, origin, grid,
+                               interval: int, u: int):
+    """Plain torch version of `window_fold_contract` (same contract): the
+    tap-plane slices, `simplex._base_and_fracs`, the 16-corner weights and
+    `gather_fold_contract_plain`; for u == 1 the rotation-summed
+    `simplex.simplex_planes_quad_int` that
+    `ensemble.rotation_ensemble_lanes_quad_int` runs."""
+    if u == 1:
+        planes4 = _window_planes(xp, taps, origin, grid)
+        return sx.simplex_planes_quad_int(
+            [tab] * 4, planes4, v=1, interval=interval).reshape(-1)
+    return torch.stack([
+        gather_fold_contract_plain(
+            tab, base, sx.corner_lams_t(*fr, interval=interval), C=16, u=u)
+        for base, fr in window_base_fracs(xp, taps=taps, origin=origin,
+                                          grid=grid, interval=interval)
+    ])
+
+
+def window_fold_contract(tab, xp, *, taps, origin, grid, interval: int,
+                         u: int):
+    """Simplex contraction of a grid of sites read from an edge-padded
+    plane, per rotation.
+
+    xp: (lead, Hp, Wp) int32 plane with values in [0, 255]; taps: R <= 4
+    rotations' four (dy, dx) tap offsets; site (b, y, x) of the
+    (lead, he, we) `grid` reads xp[b, oy + y + dy, ox + x + dx] with
+    `origin` (oy, ox).  tab: (L**4, 16*u) int8 16-corner table, L =
+    2**(8-interval) + 1.  For u in (8, 16, 64) returns (R, u, Np+8) float32,
+    Np = lead*he*we: rotation r's `gather_fold_contract(tab, base_r,
+    corner_lams_t(fracs_r))`, the 8 junk sites (base 0, fracs 0) appended.
+    For u == 1 (the int8 (L**4, 16) inner-stage table, R == 4) returns the
+    rotations' sum as (Np,) int32, the bytes of
+    `ensemble.rotation_ensemble_lanes_quad_int`.  All sums are integers
+    below 2**24, so the result is exact.
+    """
+    taps = tuple(tuple((int(dy), int(dx)) for dy, dx in rt) for rt in taps)
+    if not 1 <= interval <= 8:
+        raise ValueError(f"interval must be in 1..8, got {interval}")
+    L = 2 ** (8 - interval) + 1
+    if u not in _WINDOW_LANES:
+        raise ValueError(f"u must be one of {_WINDOW_LANES}, got {u}")
+    if (tab.dim() != 2 or tuple(tab.shape) != (L ** 4, 16 * u)
+            or tab.dtype != torch.int8):
+        raise ValueError(
+            f"tab must be the ({L ** 4}, {16 * u}) int8 16-corner table "
+            f"(C=16), got {tuple(tab.shape)} {tab.dtype}")
+    if xp.dim() != 3 or xp.dtype != torch.int32:
+        raise ValueError(f"xp must be a (lead, Hp, Wp) int32 plane, got "
+                         f"{tuple(xp.shape)} {xp.dtype}")
+    if (not 1 <= len(taps) <= 4 or any(len(rt) != 4 for rt in taps)
+            or (u == 1 and len(taps) != 4)):
+        raise ValueError("taps must be 1 to 4 rotations (4 for u == 1) of "
+                         "four (dy, dx) offsets each")
+    (oy, ox), (he, we) = origin, grid
+    hp, wp = xp.shape[1], xp.shape[2]
+    if he < 1 or we < 1:
+        raise ValueError(f"empty site grid {grid}")
+    for rt in taps:
+        for dy, dx in rt:
+            if (oy + dy < 0 or oy + dy + he > hp or ox + dx < 0
+                    or ox + dx + we > wp):
+                raise ValueError(
+                    f"tap ({dy}, {dx}) from origin {origin} over a {he} x "
+                    f"{we} grid leaves the {hp} x {wp} plane")
+    dev = _check_device(tab, xp)
+    if dev.type == "cpu":
+        return window_fold_contract_plain(tab, xp, taps=taps, origin=origin,
+                                          grid=grid, interval=interval, u=u)
+    if not (tab.is_contiguous() and xp.is_contiguous()):
+        raise ValueError("window_fold_contract needs contiguous inputs")
+    if tab.data_ptr() % 16:
+        raise ValueError("tab must be 16-byte aligned")
+    n = xp.shape[0] * he * we
+    d = _WindowDesc()
+    for r, rt in enumerate(taps):
+        for k, (dy, dx) in enumerate(rt):
+            d.tap[r][k] = dy * wp + dx
+    d.n_sites, d.n_rot = n, len(taps)
+    d.he, d.we, d.hp, d.wp, d.oy, d.ox = he, we, hp, wp, oy, ox
+    d.interval, d.L, d.n_rows = interval, L, L ** 4
+    if u == 1:
+        out = torch.empty((n,), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((len(taps), u, n + 8), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        err = _window_fn()(xp.data_ptr(), tab.data_ptr(), out.data_ptr(),
+                           ctypes.byref(d), u,
+                           torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"window_fold_contract: CUDA error {err}")
+    LAUNCHES["window_fold_contract"] += 1
+    return out
+
+
+def _plane(xp):
+    """(..., Hp, Wp) padded image -> (lead, Hp, Wp) view."""
+    return xp.reshape((-1,) + tuple(xp.shape[-2:]))
 
 
 def stage1_fold_k128(tab, img, *, mode: str, interval: int):
     """Inner-stage (v == 1) rotation ensemble of a symmetric mode over a
-    (L**4, 128) int8 k128 table: one gather + contraction (C=16, u=8)
-    yields the per-rotation extended-plane values (rows 4..7 zero); the
-    rotation un-shifts are 1-D shifted slice adds.  Returns the
-    rotation-summed (..., h, w) f32 accumulator (integer-valued)."""
+    (L**4, 128) int8 k128 table: one window contraction (u=8) yields the
+    per-rotation extended-plane values (rows 4..7 zero); the rotation
+    un-shifts are 1-D shifted slice adds.  Returns the rotation-summed
+    (..., h, w) f32 accumulator (integer-valued)."""
     geo = fold_geometry(mode)
     pad = mode_pad(mode)
     h, w = img.shape[-2], img.shape[-1]
@@ -161,16 +300,11 @@ def stage1_fold_k128(tab, img, *, mode: str, interval: int):
     mx = -min(s_[1] for s_, _ in geo)
     he, we = h + my, w + mx
     xp = _pad_ragged(img, pad, 0)
-    planes = [
-        xp[..., pad - my + dy: pad - my + dy + he,
-           pad - mx + dx: pad - mx + dx + we]
-        for dy, dx in mode_taps(mode)
-    ]
-    lead = planes[0].shape
+    lead = tuple(xp.shape[:-2]) + (he, we)
     n_ext = math.prod(lead)
-    base, fr = sx._base_and_fracs(planes, interval=interval)
-    base, fr = _pad8_base_fracs(base, fr)
-    ext = _contract_t(tab, base, fr, C=16, u=8, interval=interval)
+    ext = window_fold_contract(
+        tab, _plane(xp), taps=(mode_taps(mode),), origin=(pad - my, pad - mx),
+        grid=(he, we), interval=interval, u=8)[0]
     m_rows = n_ext - (my * we + mx)
     acc = None
     for r, ((sy, sx_), _) in enumerate(geo):
@@ -184,26 +318,35 @@ def stage1_fold_k128(tab, img, *, mode: str, interval: int):
 def stage1_quad_k128(tab, img, *, mode: str, interval: int):
     """Inner-stage (v == 1) rotation ensemble of a non-symmetric mode over
     a shared k128 table (corner m's value in lane m*8): each rotation
-    gathers with its own taps and contracts to row 0 of the (8, N) output.
+    reads its own taps and contracts to row 0 of its (8, N) output.
     Returns (..., h, w) f32 (integer-valued)."""
     pad = mode_pad(mode)
     h, w = img.shape[-2], img.shape[-1]
     xp = _pad_ragged(img, pad, 0)
-    lead = None
+    lead = tuple(xp.shape[:-2]) + (h, w)
+    n = math.prod(lead)
+    ext = window_fold_contract(
+        tab, _plane(xp), taps=[rotated_taps(mode, r) for r in range(4)],
+        origin=(pad, pad), grid=(h, w), interval=interval, u=8)
     acc = None
     for r in range(4):
-        planes = [
-            xp[..., pad + dy: pad + dy + h, pad + dx: pad + dx + w]
-            for dy, dx in rotated_taps(mode, r)
-        ]
-        lead = planes[0].shape
-        n = math.prod(lead)
-        base, fr = sx._base_and_fracs(planes, interval=interval)
-        base, fr = _pad8_base_fracs(base, fr)
-        ext = _contract_t(tab, base, fr, C=16, u=8, interval=interval)
-        piece = ext[0, :n]
+        piece = ext[r, 0, :n]
         acc = piece if acc is None else acc + piece
     return acc.reshape(lead)
+
+
+def stage1_quad_int8(tab, img, *, mode: str, interval: int):
+    """Inner-stage (v == 1) rotation ensemble of a non-symmetric mode over
+    its int8 (L**4, 16) table: one window contraction (u=1) sums the four
+    rotations.  Returns the (..., h, w) int32 accumulator, the bytes of
+    `ensemble.rotation_ensemble_lanes_quad_int(...)[..., 0]`."""
+    pad = mode_pad(mode)
+    h, w = img.shape[-2], img.shape[-1]
+    xp = ens._pad_all(img, pad)
+    out = window_fold_contract(
+        tab, _plane(xp), taps=[rotated_taps(mode, r) for r in range(4)],
+        origin=(pad, pad), grid=(h, w), interval=interval, u=1)
+    return out.reshape(img.shape)
 
 
 def folded_flat(flut, img, *, mode: str, v: int, interval: int):
@@ -221,40 +364,28 @@ def folded_flat(flut, img, *, mode: str, v: int, interval: int):
     he = h + my + 1
     we = _pad128(w + mx)
     xp = _pad_ragged(img, pad, we - (w + mx))
-    planes = [
-        xp[..., pad - my + dy: pad - my + dy + he,
-           pad - mx + dx: pad - mx + dx + we]
-        for dy, dx in mode_taps(mode)
-    ]
-    base, fr = sx._base_and_fracs(planes, interval=interval)
-    base, fr = _pad8_base_fracs(base, fr)
-    ext = _contract(flut, base, fr, C=flut.shape[1] // (4 * v), v=4 * v,
-                    interval=interval)
+    ext = window_fold_contract(
+        flut, _plane(xp), taps=(mode_taps(mode),),
+        origin=(pad - my, pad - mx), grid=(he, we), interval=interval,
+        u=4 * v)[0].T
     offs = [(sy + my) * we + (sx_ + mx) for (sy, sx_), _ in geo]
     return ext, he, we, offs
 
 
 def quad_flat(lut, img, *, mode: str, v: int, interval: int):
     """Flat per-rotation contractions of a non-symmetric mode over ONE
-    shared un-permuted 16-corner (L**4, 16*v) table.  Returns ([four
-    (N+8, v) f32 strided views in un-permuted lane order], wy), evaluated
-    over h+1 rows x 128-aligned width."""
+    shared un-permuted 16-corner (L**4, 16*v) table, in one launch.
+    Returns ([four (N+8, v) f32 strided views in un-permuted lane order],
+    wy), evaluated over h+1 rows x 128-aligned width."""
     pad = mode_pad(mode) + 1
     h, w = img.shape[-2], img.shape[-1]
     hy = h + 1
     wy = _pad128(w)
     xp = _pad_ragged(img, pad, wy - w)
-    outs = []
-    for r in range(4):
-        planes = [
-            xp[..., pad + dy: pad + dy + hy, pad + dx: pad + dx + wy]
-            for dy, dx in rotated_taps(mode, r)
-        ]
-        base, fr = sx._base_and_fracs(planes, interval=interval)
-        base, fr = _pad8_base_fracs(base, fr)
-        outs.append(_contract(lut, base, fr, C=lut.shape[-1] // v, v=v,
-                              interval=interval))
-    return outs, wy
+    ext = window_fold_contract(
+        lut, _plane(xp), taps=[rotated_taps(mode, r) for r in range(4)],
+        origin=(pad, pad), grid=(hy, wy), interval=interval, u=v)
+    return [ext[r].T for r in range(4)], wy
 
 
 # ---------------------------------------------------------------------------
@@ -438,9 +569,7 @@ def lut_cascade_packed(tabs, img, *, stages: int, modes: str, scale: int,
                     "the (L**4, 64) folded inner-stage format runs through "
                     "lut_cascade_int, a later slice; use the k128 tables")
             else:
-                out = ens.rotation_ensemble_lanes_quad_int(
-                    lut, x, mode=mode, upscale=1, interval=interval,
-                )[..., 0]
+                out = stage1_quad_int8(lut, x, mode=mode, interval=interval)
             acc = out if acc is None else acc + out
         # k128 contributions are integer-valued f32 (< 2**24 — exact)
         acc = acc.to(torch.int32)
