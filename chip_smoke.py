@@ -7,7 +7,9 @@ kernels against their plain versions.
 Needs one CUDA card and `nvcc`; exits non-zero without them.  Phases:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build of the CUDA kernels from `mulut_tpu_torch/ops/csrc/`;
+  2. build of the CUDA kernels from `mulut_tpu_torch/ops/csrc/`, and
+     ptxas's registers, spills, stack frame and static shared memory of
+     every kernel instance by entry name, with its warnings;
   3. `LutEvaluator` construction: x4, 2 stages, modes sdy, interval 4
      (17**4-row int8 LUTs, random from seed 0), tables built on the card;
   4. a recording run of the cascade on the batch, which keeps every
@@ -45,7 +47,9 @@ Then net mode (`NetEvaluator(fast=True)`, the tap-MLP units run directly):
      flops over the bf16 tensor-core peak, or bytes over the memory rate),
      plain version, and the same layer chain as cuBLAS bf16 matmuls (a
      yardstick only); `upscale_batch` host ms and MPix/s per architecture;
-     a profile of the plain forward.
+     a profile of the plain forward; beside each K4 call site its launch
+     geometry (grid, site tile, dynamic shared memory, weight bytes
+     staged per call).
 
 Then the W8A8 net mode (`NetEvaluator(quant=...)`, the units quantized to
 int8 at construction):
@@ -66,7 +70,15 @@ int8 at construction):
 Then the dense-unit routes of net mode (dense units nf=64, seed-0 weights
 as in phase 8, the same batch):
 
- 11. for each of K5 (`models.srnet.DENSE_LAYOUT = "feature"`, window), K7
+ 11. first every dense entry (K4, K9, K7, K5 on both stages' stacks; K10
+     on a stage-1 and a stage-2 unit) at ragged site counts: n =
+     1,000,003 against its plain version, n = 1, 63, 65 and one ensemble
+     block's sites -1 and +1 (767, 769) equal to the same sites of a
+     launch whose ragged edge lies elsewhere (`_dense_ragged`), with
+     their readings against the plain version printed (a tie flip at
+     these n is over the 1e-3 share alone, so not gated there), and K9's
+     and K7's raw accumulators against K4's (no entry may differ); then
+     for each of K5 (`models.srnet.DENSE_LAYOUT = "feature"`, window), K7
      (`"feature"`, `PLAIN_WINDOW = False`) and K9 (MULUT_PAIRED_KERNEL=1):
      `NetEvaluator(fast=True)`; every kernel call of `upscale_batch` held
      against its plain version (raw accumulator and its own epilogue), and
@@ -77,9 +89,10 @@ as in phase 8, the same batch):
      135 x 240 crop on the card against the port's CPU path; timings per
      call site (ms, bound, plain version, cuBLAS chain yardstick), the
      route's `srnets_predict_fast` device ms beside the K4 route's, and
-     `upscale_batch` host ms.  Then K10: `srnets_predict(bf16 params, bf16
-     x, unit_impl="pallas")`, each of its 6 unit calls against its plain
-     version, 6 launches counted, the crop card vs CPU, timings.
+     `upscale_batch` host ms, each call site's launch geometry.  Then K10:
+     `srnets_predict(bf16 params, bf16 x, unit_impl="pallas")`, each of
+     its 6 unit calls against its plain version, 6 launches counted, the
+     crop card vs CPU, timings and geometry.
 
 Then the plain-unit routes of net mode (the `_ftr2` weights, the same
 batch):
@@ -138,6 +151,13 @@ SOURCE_K9 = "mulut_tpu_torch/ops/csrc/dense_ensemble.cu"
 SOURCE_K10 = "mulut_tpu_torch/ops/csrc/dense_unit.cu"
 SOURCE_K6 = "mulut_tpu_torch/ops/csrc/plain_feature.cu"
 SOURCE_K8 = "mulut_tpu_torch/ops/csrc/plain_site.cu"
+#: csrc/dense_body.cuh's launch geometry: warpgroups per block (kGroups),
+#: sites per warpgroup tile (kTile) and per ensemble block (kBlockSites);
+#: the dense kernels' nf, output lanes per pass and the most modes of a
+#: launch (net_common.cuh kMaxModes).  tests/test_torch_dense_wgmma.py
+#: checks them against the sources.
+DENSE_GROUPS, DENSE_TILE, DENSE_BLOCK_SITES = 3, 64, 768
+DENSE_NF, DENSE_LANES, DENSE_MAX_MODES = 64, 16, 6
 #: the JAX bodies (def lines; K5 shares K3's entry :1084, K7 is reached
 #: through :1217, K9 through K4's :1281, K10 through :69)
 REPLACES_K5 = "mulut_tpu/ops/unit_kernel.py:972"
@@ -273,6 +293,94 @@ def _profile(torch, cascade, dev_ms: float, runs: int = 3, top: int = 15):
         print(f"profile, top {title} by device time per cascade:")
         for ms, n, name in sorted(rows, reverse=True)[:top]:
             print(f"  {ms:8.3f} ms  x{n:<4d} {name[:100]}")
+
+
+def _ptxas_report(logs):
+    """Registers, spills, stack frame and static shared memory of every
+    kernel instance in ptxas's `-v` report, by entry name (demangled where
+    `c++filt` is found), and every ptxas warning (a serialised wgmma
+    pipeline shows there as a performance-loss note)."""
+    import re
+    import shutil
+
+    for src, log in logs.items():
+        entries, cur = [], None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = {"name": m.group(1)}
+                entries.append(cur)
+            elif "warning" in line.lower() or "Performance Loss" in line:
+                print(f"  ptxas {src} warning: {line.strip()}")
+            elif cur is not None:
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+                if m:
+                    cur["stack"], cur["spill_st"], cur["spill_ld"] = m.groups()
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    cur["regs"] = m.group(1)
+                    m = re.search(r"(\d+) bytes smem", line)
+                    cur["smem"] = m.group(1) if m else "0"
+        names = [e["name"] for e in entries]
+        if names and shutil.which("c++filt"):
+            out = subprocess.run(["c++filt"], input="\n".join(names),
+                                 capture_output=True, text=True, timeout=60)
+            if out.returncode == 0 and len(out.stdout.splitlines()) == \
+                    len(names):
+                names = out.stdout.splitlines()
+        for e, name in zip(entries, names):
+            print(f"  ptxas {src}: {name}: {e.get('regs', '?')} registers, "
+                  f"spill stores {e.get('spill_st', '?')} B, spill loads "
+                  f"{e.get('spill_ld', '?')} B, stack {e.get('stack', '?')} "
+                  f"B, static smem {e.get('smem', '?')} B")
+
+
+def dense_grid(n: int, *, unit: bool, sms: int) -> int:
+    """Blocks of a dense launch over n sites, the rule of the C entries:
+    one per DENSE_BLOCK_SITES sites for an ensemble (K4, K5, K7, K9); for
+    one unit (K10), persistent blocks, at most one per SM (`sms`) and no
+    more than its tiles need."""
+    if unit:
+        tiles = -(-n // DENSE_TILE)
+        return min(sms, -(-tiles // DENSE_GROUPS))
+    return -(-n // DENSE_BLOCK_SITES)
+
+
+def dense_smem_bytes(*, unit: bool) -> int:
+    """Dynamic shared memory of a dense launch: the staged weights (10
+    64 x 64 K-blocks of concat layers and 5 of output head, bf16), w1 and
+    b1 as bf16, the other biases as float, the plane offsets, the
+    ensembles' raw accumulators (16 float per site of the block) and 1 KB
+    to align the base."""
+    acc = 0 if unit else DENSE_BLOCK_SITES * DENSE_LANES * 4
+    nf = DENSE_NF
+    return (15 * 64 * 128 + 2 * 5 * nf + 4 * (4 * nf + 4 * DENSE_LANES)
+            + DENSE_MAX_MODES * 16 * 4 + acc + 1024)
+
+
+def dense_staged_bytes(n: int, *, modes: int, v: int, unit: bool,
+                       sms: int) -> int:
+    """Shared-memory bytes one dense launch stages: per block and mode the
+    bf16 concat layers, output head (64 rows; a unit's v), w1 and b1, and
+    the float hidden biases and b6."""
+    rows, nf = (v if unit else 4 * DENSE_LANES), DENSE_NF
+    per_mode = (2 * (10 * nf * nf + rows * 5 * nf + 5 * nf)
+                + 4 * (4 * nf + rows))
+    return dense_grid(n, unit=unit, sms=sms) * modes * per_mode
+
+
+def _dense_geometry(torch, n, *, modes, v, unit):
+    """One dense call's launch geometry: grid, site tile, dynamic shared
+    memory and the weight bytes staged into it per call."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = dense_grid(n, unit=unit, sms=sms)
+    blocks = (f"persistent, at most one block on each of {sms} SMs" if unit
+              else f"{DENSE_BLOCK_SITES} sites per block")
+    staged = dense_staged_bytes(n, modes=modes, v=v, unit=unit, sms=sms)
+    return (f"grid={grid} x {128 * DENSE_GROUPS} threads, site tile "
+            f"{DENSE_TILE} per warpgroup ({blocks}), dynamic smem "
+            f"{dense_smem_bytes(unit=unit)} B, staged_bytes={staged}")
 
 
 def _reset(*counters):
@@ -538,6 +646,10 @@ def _net_mode(torch, tk, imgs):
                   f"kernel rows={rows} "
                   f"flops={flops:.4e} bytes={nbytes} "
                   + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+            if dense:
+                print(f"K4 {site} geometry: " + _dense_geometry(
+                    torch, rows, modes=M, v=kw.get("v") or 16,
+                    unit=False))
             if site.startswith("rgb"):
                 for k in tot:
                     tot[k] += t[k]
@@ -789,6 +901,126 @@ def _dense_work(st_t, n, src_bytes, v, mix):
     return flops, src_bytes + w_bytes + n * out_bytes
 
 
+def _dense_ragged(torch, uk, stacks, params):
+    """Each dense entry (K4, K9, K7, K5 on both stages' stacks; K10 on a
+    stage-1 and a stage-2 unit) at ragged site counts, which the batch (a
+    multiple of 64) never reaches: n = 1,000,003 against its plain version
+    (the per-call gates), and n = 1, 63, 65 and one block's sites -1 and
+    +1 equal, with no entry differing, to the same sites of a launch whose
+    ragged edge lies elsewhere: the first n sites of the n = 1,000,003
+    launch (a site's output depends on its own taps only), for K5 the
+    plane of n sites zero-extended past its last tap (taps past n read
+    0).  K9's and K7's raw accumulators against K4's: no entry differs.
+    Each small launch is also held against its plain version as a printed
+    reading (count, max |diff|, first differing entry): a tie flip there
+    is a real rate, not a fault (ROADMAP Queue C)."""
+    from mulut_tpu_torch.models.torch_import import params_from_numpy
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    M, T, N = len(MODES), DENSE_BLOCK_SITES, 1_000_003
+    P, _ = uk.window_offsets(MODES)
+    Wp = W + 2 * P
+    units = {k: {n: t.to(torch.bfloat16) for n, t in u.items()}
+             for k, u in params_from_numpy(params, "cuda").items()
+             if k in ("s1_s", "s2_y")}
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    def same(what, got, ref):
+        d = int((got != ref).sum())
+        print(f"ragged {what}: {d} of {got.numel()} entries differ")
+        if got.shape != ref.shape or d:
+            raise RuntimeError(f"ragged {what} differs")
+
+    def reading(what, got, want, scale=1, site_dim=0):
+        """A small launch against its plain version, printed, not gated:
+        at n <= 769 one tie flip is already 1e-3 of the entries, so the
+        share gate is held at n = 1,000,003 only (ROADMAP Queue C).  The
+        count of sites (index `site_dim`) with a differing entry beside
+        it: a site's lanes share its hidden activations, so its flips
+        come together."""
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs() * scale
+        nz = torch.nonzero(d > 0)
+        first = ""
+        if len(nz):
+            i = tuple(nz[0].tolist())
+            first = (f", first at {i}: {got[i].item():g} against "
+                     f"{want[i].item():g}")
+        sites = torch.unique(nz[:, site_dim]).numel()
+        print(f"ragged {what} vs plain (reading): {len(nz)} of {d.numel()} "
+              f"entries in {sites} of {got.shape[site_dim]} sites differ, "
+              f"max |diff| {d.max().item():g}{first}")
+
+    sizes = (1, 63, 65, T - 1, T + 1)
+    for s, (st, v) in enumerate(zip(stacks, (1, 16))):
+        taps, plane = rnd(N, 16 * M), rnd(N)
+        tt = taps.T.contiguous()
+        pst = uk.pair_stage_params(st)
+        k4 = uk.stage_ensemble_apply(st, taps, n_modes=M, v=v)
+        want = uk.stage_ensemble_apply_plain(st, taps, n_modes=M)
+        torch.cuda.synchronize()
+        _gate(f"ragged K4 n={N} s{s + 1} raw acc vs plain",
+              _differ(torch, k4, want), RAW_ABS)
+        same(f"K9 n={N} s{s + 1} raw acc vs K4",
+             uk.stage_ensemble_apply(pst, taps, n_modes=M, v=v), k4)
+        k7 = uk.stage_ensemble_apply_t(st, tt, n_modes=M, v=v)
+        want = uk.stage_ensemble_apply_t_plain(st, tt, n_modes=M)
+        torch.cuda.synchronize()
+        _gate(f"ragged K7 n={N} s{s + 1} raw acc vs plain",
+              _differ(torch, k7, want), RAW_ABS)
+        same(f"K7 n={N} s{s + 1} raw acc vs K4", k7.T, k4)
+        k5 = uk.stage_ensemble_apply_w(st, plane, modes=MODES, width=Wp, v=v)
+        want = uk.stage_ensemble_apply_w_plain(st, plane, modes=MODES,
+                                               width=Wp)
+        torch.cuda.synchronize()
+        _gate(f"ragged K5 n={N} s{s + 1} raw acc vs plain",
+              _differ(torch, k5, want), RAW_ABS)
+        for n in sizes:
+            what = f"n={n} s{s + 1}"
+            tn, ttn, pn = (taps[:n].contiguous(), tt[:, :n].contiguous(),
+                           plane[:n].contiguous())
+            got = uk.stage_ensemble_apply(st, tn, n_modes=M, v=v)
+            same(f"K4 {what} vs the n={N} launch", got, k4[:n])
+            reading(f"K4 {what}", got,
+                    uk.stage_ensemble_apply_plain(st, tn, n_modes=M))
+            got = uk.stage_ensemble_apply(pst, tn, n_modes=M, v=v)
+            same(f"K9 {what} vs the n={N} launch", got, k4[:n])
+            reading(f"K9 {what}", got,
+                    uk.stage_ensemble_apply_plain(pst, tn, n_modes=M))
+            got = uk.stage_ensemble_apply_t(st, ttn, n_modes=M, v=v)
+            same(f"K7 {what} vs the n={N} launch", got, k4[:n].T)
+            reading(f"K7 {what}", got,
+                    uk.stage_ensemble_apply_t_plain(st, ttn, n_modes=M),
+                    site_dim=1)
+            ext = torch.cat([plane[:n], torch.zeros(
+                (P + 1) * (Wp + 1) + 64, dtype=plane.dtype,
+                device=plane.device)])
+            got = uk.stage_ensemble_apply_w(st, pn, modes=MODES, width=Wp,
+                                            v=v)
+            same(f"K5 {what} vs its plane zero-extended", got,
+                 uk.stage_ensemble_apply_w(st, ext, modes=MODES, width=Wp,
+                                           v=v)[:, :n])
+            reading(f"K5 {what}", got, uk.stage_ensemble_apply_w_plain(
+                st, pn, modes=MODES, width=Wp), site_dim=1)
+    taps = rnd(N, 4)
+    for key, pu in units.items():
+        od = pu["w6"].shape[1]
+        big = uk.fused_unit_apply(pu, taps, out_dim=od)
+        want = uk.fused_unit_apply_plain(pu, taps, out_dim=od)
+        torch.cuda.synchronize()
+        _gate(f"ragged K10 n={N} {key} (out {od}) vs plain, x127",
+              (big.float() - want.float()).abs() * 127, K10_ABS)
+        for n in sizes:
+            tn = taps[:n].contiguous()
+            got = uk.fused_unit_apply(pu, tn, out_dim=od)
+            same(f"K10 n={n} {key} vs the n={N} launch", got, big[:n])
+            reading(f"K10 n={n} {key}, x127", got,
+                    uk.fused_unit_apply_plain(pu, tn, out_dim=od), 127)
+
+
 def _dense_routes(torch, tk, imgs):
     """Phase 11; returns the K5, K7, K9 and K10 entries of the kernels
     line."""
@@ -820,6 +1052,7 @@ def _dense_routes(torch, tk, imgs):
         ev4.stacked, x, **cfg), 5)
     print(f"dense K4 route srnets_predict_fast on the card (CUDA events): "
           f"{dev4_ms:.3f} ms/batch")
+    _dense_ragged(torch, uk, ev4.stacked, params)
     entries = []
     for (kn, key, wname, layout, window, paired, src,
          rep) in DENSE_ROUTES:
@@ -923,6 +1156,9 @@ def _dense_routes(torch, tk, imgs):
                 print(f"{kn} s{s + 1}: image sites={n_img} flops={flops:.4e} "
                       f"bytes={nbytes} "
                       + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+                n_src = src_t.shape[0] if kn == "K9" else src_t.shape[-1]
+                print(f"{kn} s{s + 1} geometry: " + _dense_geometry(
+                    torch, n_src, modes=len(MODES), v=v, unit=False))
                 for k in tot:
                     tot[k] += t[k]
             entries.append({
@@ -1008,6 +1244,8 @@ def _dense_routes(torch, tk, imgs):
         }
         print(f"K10 {site}: rows={rows} flops={flops:.4e} bytes={nbytes} "
               + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+        print(f"K10 {site} geometry: " + _dense_geometry(
+            torch, rows, modes=1, v=max(8, -(-v // 8) * 8), unit=True))
         for k in tot:
             tot[k] += t[k]
     entries.append({
@@ -1236,10 +1474,7 @@ def main() -> int:
     logs = _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({len(logs)} sources compiled)")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    _ptxas_report(logs)
 
     # 3. tables on the card
     rng = np.random.default_rng(0)

@@ -6,17 +6,26 @@
 // of dense_body.cuh over the taps in columns (4m + r)*4 .. +3 of the
 // (n, 16M) matrix, and the raw accumulator out.
 //
+// What bounds it on this card: tensor-core operations (3.1-3.5 ms per
+// call at the bench's 3,110,400 sites, 12 passes each), beside the bf16
+// chain head and the tanh on the CUDA cores.  Design (dense_body.cuh): a
+// block of three warpgroups owns 768 sites; per mode it stages the mode's
+// weights once (125 KB, wgmma's swizzled layout) and runs its 12 tiles of
+// 64 sites through wgmma chains with A in registers, keeping the raw
+// accumulators in shared memory across modes.  Staged bytes: 4,050 blocks
+// x 3 modes x 124,800 B, 1.52 GB per call, 3.03 GB per batch (the
+// mma.sync body, restaging per 128 sites, ~17.9 GB).
+//
 // K9 replaces unit_kernel.py:_pair_ensemble_kernel, the same entry with
 // the weights of pair_stage_params: two rotations share one matmul there
 // through block-diagonal weights, which fill the TPU's 128 MXU lanes at
 // nf=64.  The off-diagonal blocks are exact zeros, so K9 computes K4's
-// function.  Hopper's m16n8 tiles need no such pairing, and multiplying
-// the zeros would double the tensor-core work of layers 2-5 and of the
-// output head, so this is a kernel written for K9's weight layout that
-// computes K9's function: the per-mode staging copy reads the diagonal
-// blocks in place into K4's shared layout (copy_pair_blocks), and
-// everything after staging is K4's code.  Its accumulator is K4's, bit for
-// bit.
+// function.  Multiplying the zeros would double the tensor-core work of
+// layers 2-5 and of the output head, so this is a kernel written for K9's
+// weight layout that computes K9's function: the per-mode staging reads
+// the diagonal blocks in place into K4's shared layout (dense_body.cuh's
+// stage<PAIRED>), and everything after staging is K4's code, so its
+// accumulator is K4's, bit for bit.
 
 #include "dense_body.cuh"
 

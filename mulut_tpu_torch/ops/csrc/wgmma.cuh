@@ -1,0 +1,124 @@
+// Hopper warpgroup MMA (wgmma) pieces for sm_90a: A from registers, B
+// from shared memory in the K-major 128-byte-swizzled layout, float32
+// accumulators.
+//
+// A warpgroup is 4 consecutive warps (128 threads); m64nNk16 multiplies a
+// 64 x 16 bf16 A tile (warp w holds rows 16w .. 16w+15 in mma.sync's
+// m16n8k16 A fragment: a[0] row g cols 2t, 2t+1; a[1] row g+8; a[2] row g
+// cols 2t+8, 2t+9; a[3] row g+8) by a 16 x N B tile and adds it to the
+// 64 x N float32 accumulator, which warp w holds as mma.sync's C fragment
+// of its 16 rows, one per n8 column tile j: d[4j], d[4j+1] row g, cols
+// 8j + 2t, +1; d[4j+2], d[4j+3] row g+8.
+//
+// B in shared memory: an N x K bf16 matrix stored [n][k] (K-major), cut
+// into K-blocks of 64 columns; one K-block is N rows of 128 bytes, and
+// the 16-byte chunk c of row r sits at chunk c ^ (r & 7) of its row (the
+// 128-byte swizzle; each 8-row group is one 1024-byte atom, so a K-block
+// must start 1024-byte aligned).  A k16 step at column 16s of a K-block
+// is the descriptor of its base + 32s bytes.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of the 16-byte chunk c of row r in a swizzled operand whose
+// K-blocks are kblock bytes apart.
+__host__ __device__ constexpr int sw128(int r, int c, int kblock) {
+  return (c >> 3) * kblock + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Descriptor of a K-major 128B-swizzled operand starting at shared
+// address addr: 8-row groups 1024 bytes apart (stride byte offset), the
+// leading byte offset unused for this layout (1), swizzle mode 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Makes this thread's ordinary (generic-proxy) shared-memory stores
+// visible to the async proxy, through which wgmma reads B by descriptor.
+// Every thread that staged an operand runs it after its stores and
+// before the barrier that precedes the wgmmas.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Orders the ordinary instructions that wrote A registers and
+// accumulators before the wgmma that reads them.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until every committed wgmma group of this warpgroup is done.
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of d across this point (the
+// accumulators are written asynchronously between fence and wait).
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64) += a (64 x 16, registers) * B (16 x 64 at desc)
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(1));
+}
+
+// d (64 x 16) += a (64 x 16, registers) * B (16 x 16 at desc)
+__device__ __forceinline__ void wgmma_n16(float (&d)[8],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
+      "p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(1));
+}
+
+// d (64 x 8) += a (64 x 16, registers) * B (16 x 8 at desc)
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(1));
+}
+
+}  // namespace

@@ -287,7 +287,7 @@ def _pack_rows(vi: torch.Tensor) -> torch.Tensor:
     """(16, N) sub-pixel values in [0, 255], row 4*sy + sx -> (4, N) int32
     whose little-endian byte sx of word sy is that value."""
     n = vi.shape[1]
-    b = vi.to(torch.uint8).reshape(4, 4, n).permute(0, 2, 1).contiguous()
+    b = vi.to(torch.uint8).reshape(4, 4, n).permute(0, 2, 1).reshape(-1)
     return b.view(torch.int32).reshape(4, n)
 
 
