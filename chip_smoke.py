@@ -47,8 +47,8 @@ Then net mode (`NetEvaluator(fast=True)`, the tap-MLP units run directly):
      flops over the bf16 tensor-core peak, or bytes over the memory rate),
      plain version, and the same layer chain as cuBLAS bf16 matmuls (a
      yardstick only); `upscale_batch` host ms and MPix/s per architecture;
-     a profile of the plain forward; beside each K4 call site its launch
-     geometry (grid, site tile, dynamic shared memory, weight bytes
+     a profile of the plain forward; beside each K3 and K4 call site its
+     launch geometry (grid, site tile, dynamic shared memory, weight bytes
      staged per call).
 
 Then the W8A8 net mode (`NetEvaluator(quant=...)`, the units quantized to
@@ -97,7 +97,19 @@ as in phase 8, the same batch):
 Then the plain-unit routes of net mode (the `_ftr2` weights, the same
 batch):
 
- 12. for each of K6 (`models.srnet.PLAIN_WINDOW = False`), K8 with the
+ 12. first every plain entry (K3, K6, K8 with either head, on both
+     stages' stacks) at ragged site counts: n = 1,000,003 against its
+     plain version, K6's and K8 "mxu"'s raw accumulators against K3's on
+     tap matrices gathered from K3's plane (no entry may differ), and n =
+     1, 63, 65, 767, 769 equal to the same sites of a launch whose ragged
+     edge lies elsewhere, their readings against the plain version printed
+     (`_plain_ragged`); K3 on the depth-3 `_ftr2` weights, both stage calls
+     of `upscale_batch` against their plain version, the stage's mix at
+     the per-call gates, the raw accumulator and the 135 x 240 crop card
+     vs CPU at the depth-2 gates with the share gates scaled by the
+     measured depth-3 flip rate (ACC_FRAC_D3, U8_EQUAL_D3;
+     `_plain_depth3`);
+     then for each of K6 (`models.srnet.PLAIN_WINDOW = False`), K8 with the
      float32 head (`PLAIN_LAYOUT = "site"`) and K8 with the bf16 chain head
      (also `ops.unit_kernel.PLAIN_HEAD = "vpu"`): `NetEvaluator(fast=True)`;
      every kernel call of `upscale_batch` and `upscale_yuv_batch` held
@@ -109,13 +121,21 @@ batch):
      another), and for the float32 head their bytes equal to the K3
      route's; the 135 x 240 crop on the card against the port's CPU path;
      timings per call site (ms, bound, plain version, cuBLAS chain
-     yardstick), the route's `srnets_predict_fast` device ms beside the K3
-     route's, and `upscale_batch` host ms.
+     yardstick) with its launch geometry, the route's
+     `srnets_predict_fast` device ms beside the K3 route's, and
+     `upscale_batch` host ms.
 
 Prints a `{"kernels": [...]}` line (K1 in both forms, K2-K11; K8 with the
 float32 head) and
 ends with one `{"ok": true, "device": {...}}` line.  Any failed phase
 raises.
+
+    python3 chip_smoke.py --plain-ab ROOT [ROOT ...]
+
+compares versions of the plain body on one card instead (`_plain_ab`):
+each ROOT holds a version of the port (for example another commit's
+`git archive`, unpacked into a directory `.gitignore` lists), run in the
+order given, each in a process of its own.  It prints readings only.
 """
 
 from __future__ import annotations
@@ -158,6 +178,14 @@ SOURCE_K8 = "mulut_tpu_torch/ops/csrc/plain_site.cu"
 #: checks them against the sources.
 DENSE_GROUPS, DENSE_TILE, DENSE_BLOCK_SITES = 3, 64, 768
 DENSE_NF, DENSE_LANES, DENSE_MAX_MODES = 64, 16, 6
+#: csrc/plain_body.cuh's launch geometry (the same warpgroups, tile and
+#: block as the dense body), its nf and the most hidden layers its shared
+#: memory takes (kMaxDepth).  tests/test_torch_plain_wgmma.py checks them
+#: against the source.
+PLAIN_GROUPS, PLAIN_TILE, PLAIN_BLOCK_SITES = 3, 64, 768
+PLAIN_NF, PLAIN_MAX_DEPTH = 128, 4
+#: the depth-3 plain weights, for the depth-3 shared-memory layout
+NET_WEIGHTS_D3 = "artifacts/mxu_distilled_x4sdy_nf128_d3_ftr2.npz"
 #: the JAX bodies (def lines; K5 shares K3's entry :1084, K7 is reached
 #: through :1217, K9 through K4's :1281, K10 through :69)
 REPLACES_K5 = "mulut_tpu/ops/unit_kernel.py:972"
@@ -184,6 +212,15 @@ ACC_FRAC, MIX_ABS, RAW_ABS = 1e-3, 2, 4
 #: stage-1 value moves nearby stage-2 outputs by up to ~5 greylevels
 #: (NVIDIA H100 80GB HBM3, this script's crop: 2 of 1.56 M bytes off by 5).
 U8_EQUAL, U8_NEAR, U8_ABS = 0.999, 0.9999, 8
+#: The depth-3 plain weights (NET_WEIGHTS_D3) flip more ties: the gates
+#: above were set on the depth-2 ones.  At depth 3 the raw accumulator's
+#: share gate and the crop's equal-bytes gate are the depth-2 gates scaled
+#: by how much further the port's CPU path departs from JAX at depth 3
+#: than at depth 2 on this script's crop (stage 2 raw entries x1.5787,
+#: bytes not equal x2.1725; tests/test_torch_net_depth3.py measures it
+#: and holds these values to it), rounded to the tighter side; the other
+#: gates stay as they are.
+ACC_FRAC_D3, U8_EQUAL_D3 = 1.5e-3, 0.998
 CROP_H, CROP_W = 135, 240
 #: K10 vs its plain version, in steps of 1/127 of its bf16 tanh outputs:
 #: at most ACC_FRAC of the entries may differ, by at most K10_ABS (a
@@ -383,6 +420,46 @@ def _dense_geometry(torch, n, *, modes, v, unit):
             f"{dense_smem_bytes(unit=unit)} B, staged_bytes={staged}")
 
 
+def plain_grid(n: int) -> int:
+    """Blocks of a plain launch over n sites (K3, K6, K8): one per
+    PLAIN_BLOCK_SITES sites."""
+    return -(-n // PLAIN_BLOCK_SITES)
+
+
+def plain_smem_bytes(depth: int) -> int:
+    """Dynamic shared memory of a plain launch: the output head (64 rows
+    x nf bf16), the raw accumulators (16 float per site of the block), the
+    vectors (b1, b6 and PLAIN_MAX_DEPTH hidden biases as float, 4 nf words
+    for the head's w1, the plane offsets) rounded up to 1 KB, then `depth`
+    nf x nf bf16 layers and 1 KB to align the base."""
+    nf = PLAIN_NF
+    vec = 4 * (nf + 64 + PLAIN_MAX_DEPTH * nf + 4 * nf
+               + DENSE_MAX_MODES * 16)
+    fixed = 64 * nf * 2 + PLAIN_BLOCK_SITES * 16 * 4 + vec
+    return -(-fixed // 1024) * 1024 + depth * nf * nf * 2 + 1024
+
+
+def plain_staged_bytes(n: int, *, modes: int, depth: int, head: str) -> int:
+    """Shared-memory bytes one plain launch stages: per block and mode the
+    bf16 hidden layers and output head, the float hidden biases and b6,
+    and the head's weights: for the float32 head ("mxu") w1 and b1 as
+    float, for the bf16 head ("vpu") w1 and b1 as bf16 pairs."""
+    nf = PLAIN_NF
+    per_mode = 2 * (depth * nf * nf + 64 * nf) + 4 * (depth * nf + 64)
+    per_mode += 4 * 5 * nf if head == "mxu" else 2 * 5 * nf
+    return plain_grid(n) * modes * per_mode
+
+
+def _plain_geometry(n, *, modes, depth, head):
+    """One plain call's launch geometry: grid, site tile, dynamic shared
+    memory and the weight bytes staged into it per call."""
+    staged = plain_staged_bytes(n, modes=modes, depth=depth, head=head)
+    return (f"grid={plain_grid(n)} x {128 * PLAIN_GROUPS} threads, site "
+            f"tile {PLAIN_TILE} per warpgroup ({PLAIN_BLOCK_SITES} sites per "
+            f"block), dynamic smem {plain_smem_bytes(depth)} B, "
+            f"staged_bytes={staged}")
+
+
 def _reset(*counters):
     for c in counters:
         for k in c:
@@ -420,17 +497,20 @@ def _gate(what, d, max_abs, max_frac=ACC_FRAC):
     return err
 
 
-def _u8_gate(what, got, ref):
+def _u8_gate(what, got, ref, equal=U8_EQUAL):
+    """uint8 images against each other: the shares of bytes equal (gate
+    `equal`) and within 2 and the max |diff| against their gates."""
     if got.shape != ref.shape or got.dtype != ref.dtype:
         raise RuntimeError(f"{what}: {got.shape} {got.dtype} vs {ref.shape} "
                            f"{ref.dtype}")
     d = np.abs(got.astype(np.int64) - ref)
     eq, near = float((d == 0).mean()), float((d <= 2).mean())
     hist = {k: int((d == k).sum()) for k in range(1, int(d.max()) + 1)}
-    print(f"{what}: {eq:.6f} of {d.size} bytes equal (gate {U8_EQUAL}), "
-          f"{near:.6f} within 2 (gate {U8_NEAR}), max |diff| {int(d.max())} "
-          f"(gate {U8_ABS}), count by |diff| {hist}")
-    if eq < U8_EQUAL or near < U8_NEAR or d.max() > U8_ABS:
+    print(f"{what}: {eq:.6f} of {d.size} "
+          f"bytes equal (gate {equal}), {near:.6f} within 2 (gate "
+          f"{U8_NEAR}), max |diff| {int(d.max())} (gate {U8_ABS}), count by "
+          f"|diff| {hist}")
+    if eq < equal or near < U8_NEAR or d.max() > U8_ABS:
         raise RuntimeError(f"{what} misses its gate")
 
 
@@ -650,6 +730,9 @@ def _net_mode(torch, tk, imgs):
                 print(f"K4 {site} geometry: " + _dense_geometry(
                     torch, rows, modes=M, v=kw.get("v") or 16,
                     unit=False))
+            else:
+                print(f"K3 {site} geometry: " + _plain_geometry(
+                    rows, modes=M, depth=D, head="mxu"))
             if site.startswith("rgb"):
                 for k in tot:
                     tot[k] += t[k]
@@ -901,6 +984,35 @@ def _dense_work(st_t, n, src_bytes, v, mix):
     return flops, src_bytes + w_bytes + n * out_bytes
 
 
+def _same(what, got, ref):
+    """A ragged launch against the same sites of another launch: no entry
+    may differ."""
+    d = int((got != ref).sum())
+    print(f"ragged {what}: {d} of {got.numel()} entries differ")
+    if got.shape != ref.shape or d:
+        raise RuntimeError(f"ragged {what} differs")
+
+
+def _reading(torch, what, got, want, scale=1, site_dim=0):
+    """A launch against its plain version, printed, not gated: at n <= 769
+    one tie flip is already 1e-3 of the entries, so the share gate is held
+    at n = 1,000,003 only (ROADMAP Queue C).  The count of sites (index
+    `site_dim`) with a differing entry beside it: a site's lanes share its
+    hidden activations, so its flips come together."""
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs() * scale
+    nz = torch.nonzero(d > 0)
+    first = ""
+    if len(nz):
+        i = tuple(nz[0].tolist())
+        first = (f", first at {i}: {got[i].item():g} against "
+                 f"{want[i].item():g}")
+    sites = torch.unique(nz[:, site_dim]).numel()
+    print(f"{what} vs plain (reading): {len(nz)} of {d.numel()} "
+          f"entries in {sites} of {got.shape[site_dim]} sites differ, "
+          f"max |diff| {d.max().item():g}{first}")
+
+
 def _dense_ragged(torch, uk, stacks, params):
     """Each dense entry (K4, K9, K7, K5 on both stages' stacks; K10 on a
     stage-1 and a stage-2 unit) at ragged site counts, which the batch (a
@@ -928,32 +1040,6 @@ def _dense_ragged(torch, uk, stacks, params):
         return torch.rand(shape, generator=g, device="cuda").to(
             torch.bfloat16)
 
-    def same(what, got, ref):
-        d = int((got != ref).sum())
-        print(f"ragged {what}: {d} of {got.numel()} entries differ")
-        if got.shape != ref.shape or d:
-            raise RuntimeError(f"ragged {what} differs")
-
-    def reading(what, got, want, scale=1, site_dim=0):
-        """A small launch against its plain version, printed, not gated:
-        at n <= 769 one tie flip is already 1e-3 of the entries, so the
-        share gate is held at n = 1,000,003 only (ROADMAP Queue C).  The
-        count of sites (index `site_dim`) with a differing entry beside
-        it: a site's lanes share its hidden activations, so its flips
-        come together."""
-        torch.cuda.synchronize()
-        d = (got.float() - want.float()).abs() * scale
-        nz = torch.nonzero(d > 0)
-        first = ""
-        if len(nz):
-            i = tuple(nz[0].tolist())
-            first = (f", first at {i}: {got[i].item():g} against "
-                     f"{want[i].item():g}")
-        sites = torch.unique(nz[:, site_dim]).numel()
-        print(f"ragged {what} vs plain (reading): {len(nz)} of {d.numel()} "
-              f"entries in {sites} of {got.shape[site_dim]} sites differ, "
-              f"max |diff| {d.max().item():g}{first}")
-
     sizes = (1, 63, 65, T - 1, T + 1)
     for s, (st, v) in enumerate(zip(stacks, (1, 16))):
         taps, plane = rnd(N, 16 * M), rnd(N)
@@ -964,14 +1050,14 @@ def _dense_ragged(torch, uk, stacks, params):
         torch.cuda.synchronize()
         _gate(f"ragged K4 n={N} s{s + 1} raw acc vs plain",
               _differ(torch, k4, want), RAW_ABS)
-        same(f"K9 n={N} s{s + 1} raw acc vs K4",
-             uk.stage_ensemble_apply(pst, taps, n_modes=M, v=v), k4)
+        _same(f"K9 n={N} s{s + 1} raw acc vs K4",
+              uk.stage_ensemble_apply(pst, taps, n_modes=M, v=v), k4)
         k7 = uk.stage_ensemble_apply_t(st, tt, n_modes=M, v=v)
         want = uk.stage_ensemble_apply_t_plain(st, tt, n_modes=M)
         torch.cuda.synchronize()
         _gate(f"ragged K7 n={N} s{s + 1} raw acc vs plain",
               _differ(torch, k7, want), RAW_ABS)
-        same(f"K7 n={N} s{s + 1} raw acc vs K4", k7.T, k4)
+        _same(f"K7 n={N} s{s + 1} raw acc vs K4", k7.T, k4)
         k5 = uk.stage_ensemble_apply_w(st, plane, modes=MODES, width=Wp, v=v)
         want = uk.stage_ensemble_apply_w_plain(st, plane, modes=MODES,
                                                width=Wp)
@@ -983,28 +1069,29 @@ def _dense_ragged(torch, uk, stacks, params):
             tn, ttn, pn = (taps[:n].contiguous(), tt[:, :n].contiguous(),
                            plane[:n].contiguous())
             got = uk.stage_ensemble_apply(st, tn, n_modes=M, v=v)
-            same(f"K4 {what} vs the n={N} launch", got, k4[:n])
-            reading(f"K4 {what}", got,
-                    uk.stage_ensemble_apply_plain(st, tn, n_modes=M))
+            _same(f"K4 {what} vs the n={N} launch", got, k4[:n])
+            _reading(torch, f"ragged K4 {what}", got,
+                     uk.stage_ensemble_apply_plain(st, tn, n_modes=M))
             got = uk.stage_ensemble_apply(pst, tn, n_modes=M, v=v)
-            same(f"K9 {what} vs the n={N} launch", got, k4[:n])
-            reading(f"K9 {what}", got,
-                    uk.stage_ensemble_apply_plain(pst, tn, n_modes=M))
+            _same(f"K9 {what} vs the n={N} launch", got, k4[:n])
+            _reading(torch, f"ragged K9 {what}", got,
+                     uk.stage_ensemble_apply_plain(pst, tn, n_modes=M))
             got = uk.stage_ensemble_apply_t(st, ttn, n_modes=M, v=v)
-            same(f"K7 {what} vs the n={N} launch", got, k4[:n].T)
-            reading(f"K7 {what}", got,
-                    uk.stage_ensemble_apply_t_plain(st, ttn, n_modes=M),
-                    site_dim=1)
+            _same(f"K7 {what} vs the n={N} launch", got, k4[:n].T)
+            _reading(torch, f"ragged K7 {what}", got,
+                     uk.stage_ensemble_apply_t_plain(st, ttn, n_modes=M),
+                     site_dim=1)
             ext = torch.cat([plane[:n], torch.zeros(
                 (P + 1) * (Wp + 1) + 64, dtype=plane.dtype,
                 device=plane.device)])
             got = uk.stage_ensemble_apply_w(st, pn, modes=MODES, width=Wp,
                                             v=v)
-            same(f"K5 {what} vs its plane zero-extended", got,
-                 uk.stage_ensemble_apply_w(st, ext, modes=MODES, width=Wp,
-                                           v=v)[:, :n])
-            reading(f"K5 {what}", got, uk.stage_ensemble_apply_w_plain(
-                st, pn, modes=MODES, width=Wp), site_dim=1)
+            _same(f"K5 {what} vs its plane zero-extended", got,
+                  uk.stage_ensemble_apply_w(st, ext, modes=MODES, width=Wp,
+                                            v=v)[:, :n])
+            _reading(torch, f"ragged K5 {what}", got,
+                     uk.stage_ensemble_apply_w_plain(st, pn, modes=MODES,
+                                                     width=Wp), site_dim=1)
     taps = rnd(N, 4)
     for key, pu in units.items():
         od = pu["w6"].shape[1]
@@ -1016,9 +1103,9 @@ def _dense_ragged(torch, uk, stacks, params):
         for n in sizes:
             tn = taps[:n].contiguous()
             got = uk.fused_unit_apply(pu, tn, out_dim=od)
-            same(f"K10 n={n} {key} vs the n={N} launch", got, big[:n])
-            reading(f"K10 n={n} {key}, x127", got,
-                    uk.fused_unit_apply_plain(pu, tn, out_dim=od), 127)
+            _same(f"K10 n={n} {key} vs the n={N} launch", got, big[:n])
+            _reading(torch, f"ragged K10 n={n} {key}, x127", got,
+                     uk.fused_unit_apply_plain(pu, tn, out_dim=od), 127)
 
 
 def _dense_routes(torch, tk, imgs):
@@ -1285,6 +1372,133 @@ def _plain_flags(sn, uk, window, layout, head):
         sn.PLAIN_WINDOW, sn.PLAIN_LAYOUT, uk.PLAIN_HEAD = old
 
 
+def _plain_ragged(torch, uk, stacks):
+    """Each plain entry (K3, K6, K8 with the float32 and with the bf16
+    head) on both stages' `_ftr2` stacks at ragged site counts, which the
+    batch never reaches.  At n = 1,000,003: against its plain version (the
+    per-call gates, K3 also with its stage's mix), and K6's and K8
+    "mxu"'s raw accumulators against K3's (no entry may differ: their tap
+    matrices are gathered from K3's random plane, 0 outside it).  At n =
+    1, 63, 65 and one block's sites -1 and +1: equal, no entry differing,
+    to the same sites of a launch whose ragged edge lies elsewhere (K3:
+    its plane zero-extended past the last tap; K6, K8: the first n sites
+    of the n = 1,000,003 launch), with the reading against the plain
+    version printed, not gated (ROADMAP Queue C)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    M, T, N = len(MODES), PLAIN_BLOCK_SITES, 1_000_003
+    P, _ = uk.window_offsets(MODES)
+    Wp = W + 2 * P
+    plane = torch.rand(N, generator=g, device="cuda").to(torch.bfloat16)
+    offs = torch.tensor([o for m in uk.plane_tap_offsets(MODES, Wp)
+                         for r in m for o in r], device="cuda")
+    q = torch.arange(N, device="cuda")[:, None] + offs
+    taps = torch.where((q >= 0) & (q < N), plane[q.clamp(0, N - 1)],
+                       torch.zeros((), dtype=plane.dtype, device="cuda"))
+    tt = taps.T.contiguous()
+    del q
+    old_head = uk.PLAIN_HEAD
+    sizes = (1, 63, 65, T - 1, T + 1)
+    try:
+        for s, (st, v, mix) in enumerate(zip(stacks, (1, 16),
+                                             ("inner", "final"))):
+            kw = dict(modes=MODES, width=Wp)
+            for kind in (None, mix):
+                got = uk.stage_ensemble_apply_w(st, plane, v=v, mix=kind, **kw)
+                want = uk.stage_ensemble_apply_w_plain(st, plane, mix=kind,
+                                                       **kw)
+                torch.cuda.synchronize()
+                _gate(f"ragged K3 n={N} s{s + 1} "
+                      f"{'raw acc' if kind is None else kind} vs plain",
+                      _differ(torch, got, want, kind),
+                      RAW_ABS if kind is None else MIX_ABS)
+                if kind is None:
+                    k3 = got
+            k6 = uk.stage_ensemble_apply_t(st, tt, n_modes=M, v=v)
+            want = uk.stage_ensemble_apply_t_plain(st, tt, n_modes=M)
+            torch.cuda.synchronize()
+            _gate(f"ragged K6 n={N} s{s + 1} raw acc vs plain",
+                  _differ(torch, k6, want), RAW_ABS)
+            _same(f"K6 n={N} s{s + 1} raw acc vs K3", k6, k3)
+            k8 = {}
+            for head in uk.HEADS:
+                uk.PLAIN_HEAD = head
+                k8[head] = uk.stage_ensemble_apply(st, taps, n_modes=M, v=v)
+                want = uk.stage_ensemble_apply_plain(st, taps, n_modes=M)
+                torch.cuda.synchronize()
+                _gate(f"ragged K8 {head} n={N} s{s + 1} raw acc vs plain",
+                      _differ(torch, k8[head], want), RAW_ABS)
+            _same(f"K8 mxu n={N} s{s + 1} raw acc vs K3", k8["mxu"].T, k3)
+            for n in sizes:
+                what = f"n={n} s{s + 1}"
+                tn, ttn, pn = (taps[:n].contiguous(), tt[:, :n].contiguous(),
+                               plane[:n].contiguous())
+                ext = torch.cat([pn, torch.zeros(
+                    (P + 1) * (Wp + 1) + 64, dtype=plane.dtype,
+                    device=plane.device)])
+                got = uk.stage_ensemble_apply_w(st, pn, v=v, **kw)
+                _same(f"K3 {what} vs its plane zero-extended", got,
+                      uk.stage_ensemble_apply_w(st, ext, v=v, **kw)[:, :n])
+                _reading(torch, f"ragged K3 {what}", got,
+                         uk.stage_ensemble_apply_w_plain(st, pn, **kw),
+                         site_dim=1)
+                got = uk.stage_ensemble_apply_t(st, ttn, n_modes=M, v=v)
+                _same(f"K6 {what} vs the n={N} launch", got, k6[:, :n])
+                _reading(torch, f"ragged K6 {what}", got,
+                         uk.stage_ensemble_apply_t_plain(st, ttn, n_modes=M),
+                         site_dim=1)
+                for head in uk.HEADS:
+                    uk.PLAIN_HEAD = head
+                    got = uk.stage_ensemble_apply(st, tn, n_modes=M, v=v)
+                    _same(f"K8 {head} {what} vs the n={N} launch", got,
+                          k8[head][:n])
+                    _reading(torch, f"ragged K8 {head} {what}", got,
+                             uk.stage_ensemble_apply_plain(st, tn,
+                                                           n_modes=M))
+    finally:
+        uk.PLAIN_HEAD = old_head
+
+
+def _plain_depth3(torch, uk, imgs):
+    """K3 on the depth-3 `_ftr2` weights, for the depth-3 shared-memory
+    layout: both stage calls of `upscale_batch` on the batch against their
+    plain version, with each call's time, and the 135 x 240 crop on the
+    card against the port's CPU path.  Each stage's mixed output is held
+    at the per-call gates, its raw accumulator at ACC_FRAC_D3 and
+    RAW_ABS, the crop at U8_EQUAL_D3 and the other end-to-end gates."""
+    from mulut_tpu_torch.models.torch_import import load_params_npz
+    from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
+
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    params = load_params_npz(NET_WEIGHTS_D3)
+    ev = NetEvaluator(params, fast=True, **cfg)
+    (calls,) = _record_calls(uk, ("stage_ensemble_apply_w",),
+                             lambda: ev.upscale_batch(imgs))
+    if len(calls) != STAGES:
+        raise RuntimeError(f"depth 3: recorded {len(calls)} K3 calls")
+    for s, ((st, plane), kw) in enumerate(calls):
+        pkw = {k: v for k, v in kw.items() if k not in ("v", "mix")}
+        what = f"K3 depth {st['hwt'].shape[0]} s{s + 1}"
+        got = uk.stage_ensemble_apply_w(st, plane, **dict(kw, mix=None))
+        want = uk.stage_ensemble_apply_w_plain(st, plane, **pkw)
+        torch.cuda.synchronize()
+        _gate(f"{what} raw acc vs plain", _differ(torch, got, want),
+              RAW_ABS, max_frac=ACC_FRAC_D3)
+        got = uk.stage_ensemble_apply_w(st, plane, **kw)
+        want = uk.stage_ensemble_apply_w_plain(st, plane, mix=kw["mix"],
+                                               **pkw)
+        torch.cuda.synchronize()
+        _gate(f"{what} {kw['mix']} {tuple(got.shape)} vs plain",
+              _differ(torch, got, want, kw["mix"]), MIX_ABS)
+        ms = _cuda_ms(torch, lambda: uk.stage_ensemble_apply_w(
+            st, plane, **kw), 10)
+        print(f"{what} {kw['mix']}: ms={ms:.4f}")
+    crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
+    _u8_gate(f"K3 depth 3 {CROP_H}x{CROP_W} crop, card vs CPU path",
+             ev.upscale(crop),
+             NetEvaluator(params, fast=True, device="cpu", **cfg).upscale(
+                 crop), equal=U8_EQUAL_D3)
+
+
 def _plain_routes(torch, tk, imgs):
     """Phase 12; returns the K6 and K8 entries of the kernels line."""
     from mulut_tpu_torch.models import srnet as sn
@@ -1307,6 +1521,8 @@ def _plain_routes(torch, tk, imgs):
 
     # the K3 route (the default) as every route's reference
     ev3 = NetEvaluator(params, fast=True, **cfg)
+    _plain_ragged(torch, uk, ev3.stacked)
+    _plain_depth3(torch, uk, imgs)
     ref = ev3.upscale_batch(imgs), ev3.upscale_yuv_batch(imgs)
     dev3_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
         ev3.stacked, x, **cfg), 5)
@@ -1424,6 +1640,8 @@ def _plain_routes(torch, tk, imgs):
                 print(f"{kn} {site} {kw['mix']}: image sites={n} "
                       f"flops={flops:.4e} bytes={nbytes} "
                       + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+                print(f"{kn} {site} geometry: " + _plain_geometry(
+                    n, modes=M, depth=D, head=head))
                 if site.startswith("rgb"):
                     for k in tot:
                         tot[k] += t[k]
@@ -1728,5 +1946,116 @@ def main() -> int:
     return 0
 
 
+def _plain_ab(roots) -> int:
+    """One-card A/B of plain-body versions, one process per ROOT in the
+    order given (give parent, change, change, parent).  Per version, each
+    line tagged with its directory's name: ptxas's report of the plain
+    sources; on the batch's two K3 stage calls of `upscale_batch`, at
+    depth 2 and 3 (the `_ftr2` weights), the raw and the mixed output
+    against the plain version (share of differing entries, max |diff|,
+    count by |diff|) and each call's ms; per stage stack, K8 with either
+    head and K6 on random taps of a stage call's size, ms; the dense K4
+    route's two stage calls (the dense weights of phase 11), ms; the
+    depth-3 135 x 240 crop card vs CPU.  Readings, not gates."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for root in roots:
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--plain-ab-one", os.path.abspath(root)],
+                       cwd=here, check=True, timeout=900)
+    return 0
+
+
+def _plain_ab_one(root) -> int:
+    """One version of `_plain_ab`: the package imported from root."""
+    sys.path.insert(0, root)
+    import torch
+
+    from mulut_tpu_torch.models import srnet as sn
+    from mulut_tpu_torch.models.torch_import import load_params_npz
+    from mulut_tpu_torch.ops import _build
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
+
+    if not sn.__file__.startswith(root):
+        raise RuntimeError(f"imported {sn.__file__}, not from {root}")
+    tag = os.path.basename(root.rstrip("/"))
+    logs = _build.build_all()
+    _ptxas_report({k: v for k, v in logs.items()
+                   if k.startswith("plain_") and k != "plain_w8a8"})
+    rng = np.random.default_rng(0)
+    _random_luts(rng)   # the main run's draws, so imgs are its batch
+    imgs = rng.integers(0, 256, (BATCH, H, W, 3), dtype=np.int64).astype(
+        np.uint8)
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+
+    def reading(what, d):
+        frac, err = (d > 0).float().mean().item(), d.max().item()
+        hist = {k: int((d == k).sum()) for k in range(1, int(err) + 1)}
+        print(f"[{tag}] {what}: {frac:.3e} differ, max {err:g}, {hist}")
+
+    for wname in (NET_WEIGHTS, NET_WEIGHTS_D3):
+        params = load_params_npz(wname)
+        ev = NetEvaluator(params, fast=True, **cfg)
+        (calls,) = _record_calls(uk, ("stage_ensemble_apply_w",),
+                                 lambda: ev.upscale_batch(imgs))
+        D = calls[0][0][0]["hwt"].shape[0]
+        for s, ((st, plane), kw) in enumerate(calls):
+            pkw = {k: v for k, v in kw.items() if k not in ("v", "mix")}
+            for kind in (None, kw["mix"]):
+                got = uk.stage_ensemble_apply_w(st, plane,
+                                                **dict(kw, mix=kind))
+                want = uk.stage_ensemble_apply_w_plain(st, plane, mix=kind,
+                                                       **pkw)
+                torch.cuda.synchronize()
+                reading(f"d{D} K3 s{s + 1} {kind}",
+                        _differ(torch, got, want, kind))
+            ms = _cuda_ms(torch, lambda: uk.stage_ensemble_apply_w(
+                st, plane, **kw), 20)
+            print(f"[{tag}] d{D} K3 s{s + 1} ms={ms:.4f}")
+        g = torch.Generator(device="cuda").manual_seed(1)
+        taps = torch.rand((H * W * BATCH * 3, 48), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        tt = taps.T.contiguous()
+        old = uk.PLAIN_HEAD
+        try:
+            for s, (v, mix) in enumerate(((1, "inner"), (16, "final"))):
+                st = ev.stacked[s]
+                for head in uk.HEADS:
+                    uk.PLAIN_HEAD = head
+                    ms = _cuda_ms(torch, lambda: uk.stage_ensemble_apply(
+                        st, taps, n_modes=3, v=v, mix=mix), 20)
+                    print(f"[{tag}] d{D} K8 {head} s{s + 1} ms={ms:.4f}")
+                uk.PLAIN_HEAD = "mxu"
+                ms = _cuda_ms(torch, lambda: uk.stage_ensemble_apply_t(
+                    st, tt, n_modes=3, v=v, mix=mix), 20)
+                print(f"[{tag}] d{D} K6 s{s + 1} ms={ms:.4f}")
+        finally:
+            uk.PLAIN_HEAD = old
+        del taps, tt
+        torch.cuda.empty_cache()
+    crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
+    card = ev.upscale(crop)
+    ref = NetEvaluator(params, fast=True, device="cpu", **cfg).upscale(crop)
+    d = np.abs(card.astype(np.int64) - ref)
+    hist = {k: int((d == k).sum()) for k in range(1, int(d.max()) + 1)}
+    print(f"[{tag}] d3 crop: {float((d == 0).mean()):.6f} equal, "
+          f"{float((d <= 2).mean()):.6f} within 2, max {int(d.max())}, "
+          f"{hist}")
+    dense = sn.init_srnets(np.random.default_rng(0), nf=64, arch="dense",
+                           **cfg)
+    ev4 = NetEvaluator(dense, fast=True, **cfg)
+    (calls,) = _record_calls(uk, ("stage_ensemble_apply",),
+                             lambda: ev4.upscale_batch(imgs))
+    for s, ((st, taps), kw) in enumerate(calls):
+        ms = _cuda_ms(torch, lambda: uk.stage_ensemble_apply(st, taps, **kw),
+                      20)
+        print(f"[{tag}] dense K4 s{s + 1} ms={ms:.4f}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--plain-ab"]:
+        sys.exit(_plain_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--plain-ab-one"]:
+        sys.exit(_plain_ab_one(sys.argv[2]))
     sys.exit(main())

@@ -97,6 +97,7 @@ HEADS = ("mxu", "vpu")
 _MAX_MODES = 6            # csrc/net_common.cuh kMaxModes
 _LANES = 16               # output lanes per rotation (csrc kHeadRows / 4)
 _PLAIN_NF = 128           # csrc/plain_*.cu instantiation (the artifacts)
+_PLAIN_MAX_DEPTH = 4      # csrc/plain_body.cuh kMaxDepth (shared memory)
 _DENSE_NF = 64            # csrc/dense_*.cu instantiation (reference)
 _W8A8_NF = 128            # csrc/plain_w8a8.cu instantiation (the artifacts)
 _CHUNK = 1 << 19          # plain versions: sites per chunk
@@ -454,10 +455,11 @@ def _launch_plain(name: str, st: dict, src: torch.Tensor, out: torch.Tensor,
     stack `st` (kernels' layout), the tap source `src` (n sites) and `out`,
     with epilogue `mix` (and, for K8, `head`)."""
     D, _, nf, _ = st["hwt"].shape
-    if nf != _PLAIN_NF or modes > _MAX_MODES:
+    if nf != _PLAIN_NF or modes > _MAX_MODES or D > _PLAIN_MAX_DEPTH:
         raise NotImplementedError(
-            f"the CUDA plain-unit kernels are built for nf={_PLAIN_NF} and "
-            f"at most {_MAX_MODES} modes; got nf={nf}, {modes} modes")
+            f"the CUDA plain-unit kernels are built for nf={_PLAIN_NF}, at "
+            f"most {_MAX_MODES} modes and depth {_PLAIN_MAX_DEPTH}; got "
+            f"nf={nf}, {modes} modes, depth {D}")
     ts = [st[k] for k in _PLAIN_KEYS]
     if not all(t.is_contiguous() for t in ts + [src]):
         raise ValueError(f"{name} needs contiguous tensors")
