@@ -55,17 +55,22 @@ Then the W8A8 net mode (`NetEvaluator(quant=...)`, the units quantized to
 int8 at construction):
 
  10. for `quant=True` (integer requant) and `quant="f32"`, the shipped
-     `_ftr2` weights through `NetEvaluator.from_checkpoint`: the
+     `_ftr2` weights (nf=128) and then the nf=256 ones
+     (`NET_WEIGHTS_NF256`) through `NetEvaluator.from_checkpoint`: the
      quantization time; every int8-kernel (K11) call of `upscale_batch`
      and `upscale_yuv_batch` on the batch held against its plain version
-     (raw accumulator, no entry may differ); both entry points with every
-     launch counter set to 0 just before and read just after (2 K11
-     launches each); the 135 x 240 crop on the card against the port's CPU
-     path; timings: K11 per call
-     site beside its bound (operations over the int8 tensor-core peak, or
-     bytes) and beside the same per-stage work as `torch._int_mm` products
-     and torch elementwise steps (a yardstick only), `upscale_batch` host ms
-     and MPix/s and `srnets_predict_fast` device ms.
+     (raw accumulator, no entry may differ), with its launch geometry
+     (grid, site tile, dynamic shared memory, weight bytes staged per
+     call); both entry points with every launch counter set to 0 just
+     before and read just after (2 K11 launches each); the 135 x 240 crop
+     on the card against the port's CPU path (at nf=256 RGB only); timings:
+     K11 per call site (at nf=256 the RGB ones) beside its bound
+     (operations over the int8 tensor-core peak, or bytes) and beside the
+     same per-stage work as `torch._int_mm` products and torch elementwise
+     steps (a yardstick only), `upscale_batch` host ms and MPix/s and
+     `srnets_predict_fast` device ms; then every stage stack of the four
+     at n = 1, 63, 65, 767, 769 and 1,000,003 on random taps against its
+     plain version, no entry differing (`_w8a8_ragged`).
 
 Then the dense-unit routes of net mode (dense units nf=64, seed-0 weights
 as in phase 8, the same batch):
@@ -131,11 +136,18 @@ ends with one `{"ok": true, "device": {...}}` line.  Any failed phase
 raises.
 
     python3 chip_smoke.py --plain-ab ROOT [ROOT ...]
+    python3 chip_smoke.py --w8a8-ab ROOT [ROOT ...]
 
-compares versions of the plain body on one card instead (`_plain_ab`):
-each ROOT holds a version of the port (for example another commit's
-`git archive`, unpacked into a directory `.gitignore` lists), run in the
-order given, each in a process of its own.  It prints readings only.
+compare versions of the plain body, or of K11, on one card instead
+(`_plain_ab_one`, `_w8a8_ab_one`): each ROOT holds a version of the port
+(for example another commit's `git archive`, unpacked into a directory
+`.gitignore` lists), run in the order given, each in a process of its
+own.  They print readings only.
+
+    python3 chip_smoke.py --sass [SOURCE ...]
+
+prints each kernel instance's SASS instruction count by opcode
+(`cuobjdump`; default source plain_w8a8).
 """
 
 from __future__ import annotations
@@ -186,6 +198,14 @@ PLAIN_GROUPS, PLAIN_TILE, PLAIN_BLOCK_SITES = 3, 64, 768
 PLAIN_NF, PLAIN_MAX_DEPTH = 128, 4
 #: the depth-3 plain weights, for the depth-3 shared-memory layout
 NET_WEIGHTS_D3 = "artifacts/mxu_distilled_x4sdy_nf128_d3_ftr2.npz"
+#: csrc/plain_w8a8.cu's launch geometry (K11: warpgroups per block by nf,
+#: the plain body's tile and block) and its instances' nf; the nf=256
+#: weights K11 also runs.  tests/test_torch_w8a8_wgmma.py checks them
+#: against the source.
+W8A8_GROUPS = {128: 4, 256: 3}
+W8A8_TILE, W8A8_BLOCK_SITES = 64, 768
+W8A8_NFS = tuple(W8A8_GROUPS)
+NET_WEIGHTS_NF256 = "artifacts/mxu_distilled_x4sdy_nf256_d2_ftr2.npz"
 #: the JAX bodies (def lines; K5 shares K3's entry :1084, K7 is reached
 #: through :1217, K9 through K4's :1281, K10 through :69)
 REPLACES_K5 = "mulut_tpu/ops/unit_kernel.py:972"
@@ -458,6 +478,36 @@ def _plain_geometry(n, *, modes, depth, head):
             f"tile {PLAIN_TILE} per warpgroup ({PLAIN_BLOCK_SITES} sites per "
             f"block), dynamic smem {plain_smem_bytes(depth)} B, "
             f"staged_bytes={staged}")
+
+
+def w8a8_grid(n: int) -> int:
+    """Blocks of a K11 launch over n sites: one per W8A8_BLOCK_SITES."""
+    return -(-n // W8A8_BLOCK_SITES)
+
+
+def w8a8_staged_bytes(n: int, *, nf: int, modes: int, depth: int,
+                      int_requant: bool) -> int:
+    """Shared-memory bytes one K11 launch stages: per block and mode the
+    int8 hidden layers and output head, w1 and b1 (bf16), c6 and b6
+    (float) and the requant constants (4 words per column for "int", 2
+    for "f32")."""
+    per_mode = (depth * nf * nf + 64 * nf + 2 * 5 * nf + 4 * 2 * 64
+                + depth * nf * (4 if int_requant else 2) * 4)
+    return w8a8_grid(n) * modes * per_mode
+
+
+def _w8a8_geometry(uk, st, n):
+    """One K11 call's launch geometry: grid, site tile, dynamic shared
+    memory (`unit_kernel.w8a8_smem_bytes`) and the weight bytes staged into
+    it per call."""
+    M, nf, _ = st["w1t"].shape
+    D, intq = st["hwqt"].shape[0], "hmq" in st
+    staged = w8a8_staged_bytes(n, nf=nf, modes=M, depth=D, int_requant=intq)
+    smem, every = uk.w8a8_smem_bytes(nf, D, intq, M)
+    how = "all modes staged at once" if every else "one mode at a time"
+    return (f"grid={w8a8_grid(n)} x {128 * W8A8_GROUPS[nf]} threads, site "
+            f"tile {W8A8_TILE} per warpgroup ({W8A8_BLOCK_SITES} sites per "
+            f"block), dynamic smem {smem} B ({how}), staged_bytes={staged}")
 
 
 def _reset(*counters):
@@ -809,8 +859,30 @@ def _int8_chain_ms(torch, st, n, v, int_requant):
     return ms
 
 
+def _w8a8_ragged(torch, uk, stacks):
+    """K11 at ragged site counts, which the batch never reaches: each of
+    `stacks` ({name: (stage-1 stack, stage-2 stack)}) on random bf16 taps
+    in [0, 1) at n = 1, 63, 65, one block's sites -1 and +1 and 1,000,003,
+    against its plain version on the same taps; no entry may differ (K11
+    is exact, so small n gets no reading exception)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    M, N = len(MODES), 1_000_003
+    taps = torch.rand((N, 16 * M), generator=g, device="cuda").to(
+        torch.bfloat16)
+    sizes = (1, 63, 65, W8A8_BLOCK_SITES - 1, W8A8_BLOCK_SITES + 1, N)
+    for name, pair in stacks.items():
+        for s, (st, v) in enumerate(zip(pair, (1, 16))):
+            for n in sizes:
+                tn = taps[:n].contiguous()
+                got = uk.stage_ensemble_apply_q(st, tn, n_modes=M, v=v)
+                want = uk.stage_ensemble_apply_q_plain(st, tn, n_modes=M)
+                torch.cuda.synchronize()
+                _gate(f"ragged K11 {name} n={n} s{s + 1} raw acc vs plain",
+                      _differ(torch, got, want), 0, max_frac=0)
+
+
 def _quant_mode(torch, tk, imgs):
-    """Phase 10; returns K11's entry of the kernels line."""
+    """Phase 10; returns K11's entry of the kernels line (nf=128, "int")."""
     from mulut_tpu_torch.models import srnet as sn
     from mulut_tpu_torch.ops import unit_kernel as uk
     from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
@@ -821,120 +893,137 @@ def _quant_mode(torch, tk, imgs):
     mpix = BATCH * H * SCALE * W * SCALE / 1e6
     sites = ["rgb s1", "rgb s2", "yuv s1", "yuv s2"]
     want_launches = _only(uk.LAUNCHES, "stage_ensemble_apply_q", 2)
-    entry = None
-    for quant in (True, "f32"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev = NetEvaluator.from_checkpoint(NET_WEIGHTS, quant=quant, **cfg)
-        torch.cuda.synchronize()
-        print(f"quant {quant!r}: NetEvaluator.from_checkpoint with W8A8 "
-              f"quantization in {(time.perf_counter() - t0) * 1e3:.1f} ms; "
-              "stage stacks " + ", ".join(
-                  f"{k}{tuple(v.shape)} {str(v.dtype)[6:]}"
-                  for k, v in ev.stacked[1].items()))
-
-        def both():
-            ev.upscale_batch(imgs)
-            ev.upscale_yuv_batch(imgs)
-
-        (calls,) = _record_calls(uk, ("stage_ensemble_apply_q",), both)
-        if len(calls) != len(sites):
-            raise RuntimeError(f"quant {quant!r}: recorded {len(calls)} K11 "
-                               f"calls; expected {len(sites)}")
-        err = 0.0
-        for site, ((st, taps), kw) in zip(sites, calls):
-            got = uk.stage_ensemble_apply_q(st, taps, **kw)
-            want = uk.stage_ensemble_apply_q_plain(st, taps,
-                                                   n_modes=kw["n_modes"])
+    entry, stacks = None, {}
+    for weights in (NET_WEIGHTS, NET_WEIGHTS_NF256):
+        for quant in (True, "f32"):
             torch.cuda.synchronize()
-            # no entry may differ: the int8 sums are exact, and the bf16
-            # head, requant and dequantizing FMAs round as the plain
-            # version does, with the same card's tanhf (NVIDIA H100 80GB
-            # HBM3, this batch: 0 of 66.4 M entries, per stage and form)
-            err = max(err, _gate(
-                f"K11 {quant!r} {site} raw acc {tuple(got.shape)}",
-                _differ(torch, got, want), 0, max_frac=0))
-        # the main path through the entry points, counted
-        for fn in (ev.upscale_batch, ev.upscale_yuv_batch):
-            _reset(*counters)
-            out = fn(imgs)
-            launches = dict(uk.LAUNCHES)
-            if fn == ev.upscale_batch:
-                k11_launches = launches["stage_ensemble_apply_q"]
-            print(f"quant {quant!r} {fn.__name__}: {imgs.shape} -> "
-                  f"{out.shape}, launches {launches} + LUT "
-                  f"{dict(tk.LAUNCHES)}")
-            if launches != want_launches or any(tk.LAUNCHES.values()):
-                raise RuntimeError(f"quant {quant!r} {fn.__name__} launches "
-                                   f"{launches}; expected {want_launches}")
-            if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or \
-                    out.dtype != np.uint8:
-                raise RuntimeError(f"bad output {out.shape} {out.dtype}")
-        # the card against the CPU path on a crop of frame 0
-        t0 = time.perf_counter()
-        ev_cpu = NetEvaluator.from_checkpoint(NET_WEIGHTS, quant=quant,
-                                              device="cpu", **cfg)
-        _u8_gate(f"quant {quant!r} {CROP_H}x{CROP_W} crop, card vs CPU path",
-                 ev.upscale(crop), ev_cpu.upscale(crop))
-        _u8_gate(f"quant {quant!r} {CROP_H}x{CROP_W} crop YUV, card vs CPU",
-                 ev.upscale_yuv(crop), ev_cpu.upscale_yuv(crop))
-        print(f"quant {quant!r} CPU path: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            ev = NetEvaluator.from_checkpoint(weights, quant=quant, **cfg)
+            torch.cuda.synchronize()
+            nf = ev.stacked[0]["w1t"].shape[1]
+            tag = f"nf={nf} {quant!r}"
+            wide = nf > 128
+            print(f"quant {tag}: NetEvaluator.from_checkpoint({weights}) "
+                  "with W8A8 quantization in "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms; stage stacks "
+                  + ", ".join(f"{k}{tuple(v.shape)} {str(v.dtype)[6:]}"
+                              for k, v in ev.stacked[1].items()))
 
-        # timings
-        reps = 5
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            ev.upscale_batch(imgs)
-        batch_ms = (time.perf_counter() - t0) * 1e3 / reps
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            ev.upscale_yuv_batch(imgs)
-        yuv_ms = (time.perf_counter() - t0) * 1e3 / reps
-        x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2).float() / 255
-        dev_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
-            ev.stacked, x, **cfg), reps)
-        print(f"quant {quant!r} upscale_batch (host clock, H2D + D2H "
-              f"included): {batch_ms:.3f} ms/batch = "
-              f"{mpix / batch_ms * 1e3:.2f} MPix/s")
-        print(f"quant {quant!r} srnets_predict_fast on the card (CUDA "
-              f"events): {dev_ms:.3f} ms/batch = {mpix / dev_ms * 1e3:.2f} "
-              "MPix/s")
-        print(f"quant {quant!r} upscale_yuv_batch (host clock): "
-              f"{yuv_ms:.3f} ms/batch = {mpix / yuv_ms * 1e3:.2f} MPix/s")
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-        chain = {}
-        for site, ((st, taps), kw) in zip(sites, calls):
-            n, ops, nbytes = _k11_work(st, taps, kw)
-            t = {
-                "ms": _cuda_ms(torch, lambda: uk.stage_ensemble_apply_q(
-                    st, taps, **kw), 10),
-                "plain_ms": _cuda_ms(torch, lambda: (
-                    uk.stage_ensemble_apply_q_plain(
-                        st, taps, n_modes=kw["n_modes"])), 2),
-                "bound_ms": max(ops / INT8_OPS_PER_MS,
-                                nbytes / HBM_BYTES_PER_MS),
-            }
-            v = kw.get("v") or 16
-            if (n, v) not in chain:
-                chain[n, v] = _int8_chain_ms(torch, st, n, v,
-                                             "hmq" in st)
-            t["int8_chain_ms"] = chain[n, v]
-            print(f"K11 {quant!r} {site}: image sites={n} ops={ops:.4e} "
-                  f"bytes={nbytes} "
-                  + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
-            if site.startswith("rgb"):
-                for k in tot:
-                    tot[k] += t[k]
-        if quant is True:
-            entry = {"name": "stage_ensemble_apply_q", "route": "cuda",
-                     "source": SOURCE_K11, "replaces": REPLACES_K11,
-                     "launches": k11_launches, "max_abs_err": err,
-                     "ms": tot["ms"],
-                     "plain_ms": tot["plain_ms"],
-                     "bound_ms": tot["bound_ms"], "bound_by": "operations",
-                     "library_ms": None}
-        del ev, ev_cpu, calls, x
-        torch.cuda.empty_cache()
+            def both():
+                ev.upscale_batch(imgs)
+                ev.upscale_yuv_batch(imgs)
+
+            (calls,) = _record_calls(uk, ("stage_ensemble_apply_q",), both)
+            if len(calls) != len(sites):
+                raise RuntimeError(f"quant {tag}: recorded {len(calls)} K11 "
+                                   f"calls; expected {len(sites)}")
+            err = 0.0
+            for site, ((st, taps), kw) in zip(sites, calls):
+                got = uk.stage_ensemble_apply_q(st, taps, **kw)
+                want = uk.stage_ensemble_apply_q_plain(
+                    st, taps, n_modes=kw["n_modes"])
+                torch.cuda.synchronize()
+                # no entry may differ: the int8 sums are exact, and the
+                # bf16 head, requant and dequantizing FMAs round as the
+                # plain version does, with the same card's tanhf (NVIDIA
+                # H100 80GB HBM3, this batch: 0 of 66.4 M entries, per
+                # stage and form)
+                err = max(err, _gate(
+                    f"K11 {tag} {site} raw acc {tuple(got.shape)}",
+                    _differ(torch, got, want), 0, max_frac=0))
+                print(f"K11 {tag} {site} geometry: "
+                      + _w8a8_geometry(uk, st, taps.shape[0]))
+            # the main path through the entry points, counted
+            for fn in (ev.upscale_batch, ev.upscale_yuv_batch):
+                _reset(*counters)
+                out = fn(imgs)
+                launches = dict(uk.LAUNCHES)
+                if fn == ev.upscale_batch:
+                    k11_launches = launches["stage_ensemble_apply_q"]
+                print(f"quant {tag} {fn.__name__}: {imgs.shape} -> "
+                      f"{out.shape}, launches {launches} + LUT "
+                      f"{dict(tk.LAUNCHES)}")
+                if launches != want_launches or any(tk.LAUNCHES.values()):
+                    raise RuntimeError(f"quant {tag} {fn.__name__} launches "
+                                       f"{launches}; expected "
+                                       f"{want_launches}")
+                if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or \
+                        out.dtype != np.uint8:
+                    raise RuntimeError(f"bad output {out.shape} {out.dtype}")
+            # the card against the CPU path on a crop of frame 0 (nf=256:
+            # RGB only, its CPU path is 4x as slow)
+            t0 = time.perf_counter()
+            ev_cpu = NetEvaluator.from_checkpoint(weights, quant=quant,
+                                                  device="cpu", **cfg)
+            _u8_gate(f"quant {tag} {CROP_H}x{CROP_W} crop, card vs CPU path",
+                     ev.upscale(crop), ev_cpu.upscale(crop))
+            if not wide:
+                _u8_gate(f"quant {tag} {CROP_H}x{CROP_W} crop YUV, card vs "
+                         "CPU", ev.upscale_yuv(crop), ev_cpu.upscale_yuv(crop))
+            print(f"quant {tag} CPU path: {time.perf_counter() - t0:.1f} s")
+
+            # timings
+            reps = 5
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                ev.upscale_batch(imgs)
+            batch_ms = (time.perf_counter() - t0) * 1e3 / reps
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                ev.upscale_yuv_batch(imgs)
+            yuv_ms = (time.perf_counter() - t0) * 1e3 / reps
+            x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2).float() / 255
+            dev_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
+                ev.stacked, x, **cfg), reps)
+            print(f"quant {tag} upscale_batch (host clock, H2D + D2H "
+                  f"included): {batch_ms:.3f} ms/batch = "
+                  f"{mpix / batch_ms * 1e3:.2f} MPix/s")
+            print(f"quant {tag} srnets_predict_fast on the card (CUDA "
+                  f"events): {dev_ms:.3f} ms/batch = "
+                  f"{mpix / dev_ms * 1e3:.2f} MPix/s")
+            print(f"quant {tag} upscale_yuv_batch (host clock): "
+                  f"{yuv_ms:.3f} ms/batch = {mpix / yuv_ms * 1e3:.2f} MPix/s")
+            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+            chain = {}
+            for site, ((st, taps), kw) in zip(sites, calls):
+                if wide and not site.startswith("rgb"):
+                    continue
+                n, ops, nbytes = _k11_work(st, taps, kw)
+                t = {
+                    "ms": _cuda_ms(torch, lambda: uk.stage_ensemble_apply_q(
+                        st, taps, **kw), 10),
+                    "plain_ms": _cuda_ms(torch, lambda: (
+                        uk.stage_ensemble_apply_q_plain(
+                            st, taps, n_modes=kw["n_modes"])), 1 if wide
+                        else 2),
+                    "bound_ms": max(ops / INT8_OPS_PER_MS,
+                                    nbytes / HBM_BYTES_PER_MS),
+                }
+                v = kw.get("v") or 16
+                if (n, v) not in chain:
+                    chain[n, v] = _int8_chain_ms(torch, st, n, v,
+                                                 "hmq" in st)
+                t["int8_chain_ms"] = chain[n, v]
+                print(f"K11 {tag} {site}: image sites={n} ops={ops:.4e} "
+                      f"bytes={nbytes} "
+                      + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+                if site.startswith("rgb"):
+                    for k in tot:
+                        tot[k] += t[k]
+            print(f"K11 {tag} per batch (rgb s1 + s2): "
+                  + " ".join(f"{k}={v_:.4f}" for k, v_ in tot.items()))
+            if quant is True and not wide:
+                entry = {"name": "stage_ensemble_apply_q", "route": "cuda",
+                         "source": SOURCE_K11, "replaces": REPLACES_K11,
+                         "launches": k11_launches, "max_abs_err": err,
+                         "ms": tot["ms"],
+                         "plain_ms": tot["plain_ms"],
+                         "bound_ms": tot["bound_ms"],
+                         "bound_by": "operations", "library_ms": None}
+            stacks[tag] = ev.stacked
+            del ev, ev_cpu, calls, x
+            torch.cuda.empty_cache()
+    _w8a8_ragged(torch, uk, stacks)
     return entry
 
 
@@ -1666,6 +1755,15 @@ def _plain_routes(torch, tk, imgs):
                   max(errs["K8"], errs["K8 vpu"]))]
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
@@ -1679,11 +1777,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = _card()
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -1946,32 +2040,28 @@ def main() -> int:
     return 0
 
 
-def _plain_ab(roots) -> int:
-    """One-card A/B of plain-body versions, one process per ROOT in the
-    order given (give parent, change, change, parent).  Per version, each
-    line tagged with its directory's name: ptxas's report of the plain
-    sources; on the batch's two K3 stage calls of `upscale_batch`, at
-    depth 2 and 3 (the `_ftr2` weights), the raw and the mixed output
-    against the plain version (share of differing entries, max |diff|,
-    count by |diff|) and each call's ms; per stage stack, K8 with either
-    head and K6 on random taps of a stage call's size, ms; the dense K4
-    route's two stage calls (the dense weights of phase 11), ms; the
-    depth-3 135 x 240 crop card vs CPU.  Readings, not gates."""
+def _ab(kind, roots) -> int:
+    """One-card A/B of versions of the port, one process per ROOT in the
+    order given (give parent, change, change, parent): `_plain_ab_one`
+    (kind "plain") or `_w8a8_ab_one` ("w8a8") on each."""
     here = os.path.dirname(os.path.abspath(__file__))
+    print(f"card: {_card()}")
     for root in roots:
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--plain-ab-one", os.path.abspath(root)],
+                        "--ab-one", kind, os.path.abspath(root)],
                        cwd=here, check=True, timeout=900)
+    print(f"card: {_card()}")
     return 0
 
 
-def _plain_ab_one(root) -> int:
-    """One version of `_plain_ab`: the package imported from root."""
+def _ab_setup(root, sources):
+    """The package of one A/B version imported from root, its kernels
+    built (ptxas's report of `sources`), the main run's batch; returns
+    (torch, unit_kernel module, NetEvaluator, batch, tag, reading)."""
     sys.path.insert(0, root)
     import torch
 
     from mulut_tpu_torch.models import srnet as sn
-    from mulut_tpu_torch.models.torch_import import load_params_npz
     from mulut_tpu_torch.ops import _build
     from mulut_tpu_torch.ops import unit_kernel as uk
     from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
@@ -1980,19 +2070,75 @@ def _plain_ab_one(root) -> int:
         raise RuntimeError(f"imported {sn.__file__}, not from {root}")
     tag = os.path.basename(root.rstrip("/"))
     logs = _build.build_all()
-    _ptxas_report({k: v for k, v in logs.items()
-                   if k.startswith("plain_") and k != "plain_w8a8"})
+    _ptxas_report({k: v for k, v in logs.items() if sources(k)})
     rng = np.random.default_rng(0)
     _random_luts(rng)   # the main run's draws, so imgs are its batch
     imgs = rng.integers(0, 256, (BATCH, H, W, 3), dtype=np.int64).astype(
         np.uint8)
-    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
 
     def reading(what, d):
         frac, err = (d > 0).float().mean().item(), d.max().item()
         hist = {k: int((d == k).sum()) for k in range(1, int(err) + 1)}
         print(f"[{tag}] {what}: {frac:.3e} differ, max {err:g}, {hist}")
 
+    return torch, uk, NetEvaluator, imgs, tag, reading
+
+
+def _w8a8_ab_one(root) -> int:
+    """One version of the K11 A/B: ptxas's report of plain_w8a8; for
+    "int" and "f32" on the `_ftr2` weights (nf=128) and the nf=256 ones,
+    the batch's two K11 stage calls of `upscale_batch` against their plain
+    version (share of differing entries, max |diff|) and each call's ms;
+    a version whose K11 refuses nf=256 says so.  Readings, not gates."""
+    torch, uk, NetEvaluator, imgs, tag, reading = _ab_setup(
+        root, lambda k: k == "plain_w8a8")
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    for weights in (NET_WEIGHTS, NET_WEIGHTS_NF256):
+        for quant in (True, "f32"):
+            ev = NetEvaluator.from_checkpoint(weights, quant=quant, **cfg)
+            nf = ev.stacked[0]["w1t"].shape[1]
+            what = f"nf={nf} {quant!r}"
+            try:
+                (calls,) = _record_calls(uk, ("stage_ensemble_apply_q",),
+                                         lambda: ev.upscale_batch(imgs))
+            except NotImplementedError as e:
+                print(f"[{tag}] K11 {what}: not run ({e})")
+                continue
+            tot = 0.0
+            for s, ((st, taps), kw) in enumerate(calls):
+                got = uk.stage_ensemble_apply_q(st, taps, **kw)
+                want = uk.stage_ensemble_apply_q_plain(
+                    st, taps, n_modes=kw["n_modes"])
+                torch.cuda.synchronize()
+                reading(f"K11 {what} s{s + 1} raw acc vs plain",
+                        _differ(torch, got, want))
+                del got, want
+                ms = _cuda_ms(torch, lambda: uk.stage_ensemble_apply_q(
+                    st, taps, **kw), 20)
+                tot += ms
+                print(f"[{tag}] K11 {what} s{s + 1} ms={ms:.4f}")
+            print(f"[{tag}] K11 {what} per batch ms={tot:.4f}")
+            del ev, calls
+            torch.cuda.empty_cache()
+    return 0
+
+
+def _plain_ab_one(root) -> int:
+    """One version of the plain-body A/B.  Each line tagged with its
+    directory's name: ptxas's report of the plain sources; on the batch's
+    two K3 stage calls of `upscale_batch`, at depth 2 and 3 (the `_ftr2`
+    weights), the raw and the mixed output against the plain version
+    (share of differing entries, max |diff|, count by |diff|) and each
+    call's ms; per stage stack, K8 with either head and K6 on random taps
+    of a stage call's size, ms; the dense K4 route's two stage calls (the
+    dense weights of phase 11), ms; the depth-3 135 x 240 crop card vs
+    CPU.  Readings, not gates."""
+    torch, uk, NetEvaluator, imgs, tag, reading = _ab_setup(
+        root, lambda k: k.startswith("plain_") and k != "plain_w8a8")
+    from mulut_tpu_torch.models import srnet as sn
+    from mulut_tpu_torch.models.torch_import import load_params_npz
+
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
     for wname in (NET_WEIGHTS, NET_WEIGHTS_D3):
         params = load_params_npz(wname)
         ev = NetEvaluator(params, fast=True, **cfg)
@@ -2053,9 +2199,44 @@ def _plain_ab_one(root) -> int:
     return 0
 
 
+def _sass(names) -> int:
+    """Per kernel instance of the given sources (default plain_w8a8):
+    its SASS instruction count by opcode, from `cuobjdump -sass` of the
+    built library beside nvcc (static counts: a loop body counts once)."""
+    import collections
+    import re
+    import shutil
+
+    from mulut_tpu_torch.ops import _build
+
+    print(f"card: {_card()}")
+    _build.build_all()
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for name in names or ["plain_w8a8"]:
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for part in sass.split("Function : ")[1:]:
+            entry = part.split("\n", 1)[0].strip()
+            if shutil.which("c++filt"):
+                entry = subprocess.run(["c++filt", entry], capture_output=True,
+                                       text=True, timeout=60).stdout.strip()
+            ops = collections.Counter(
+                m.group(1) for m in re.finditer(
+                    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                    part))
+            print(f"sass {name}: {entry}: {sum(ops.values())} instructions; "
+                  + ", ".join(f"{op} {n}" for op, n in ops.most_common()))
+    return 0
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--plain-ab"]:
-        sys.exit(_plain_ab(sys.argv[2:]))
-    if sys.argv[1:2] == ["--plain-ab-one"]:
-        sys.exit(_plain_ab_one(sys.argv[2]))
+    ab = {"--plain-ab": "plain", "--w8a8-ab": "w8a8"}
+    if sys.argv[1:2] and sys.argv[1] in ab:
+        sys.exit(_ab(ab[sys.argv[1]], sys.argv[2:]))
+    if sys.argv[1:2] == ["--sass"]:
+        sys.exit(_sass(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ab-one"]:
+        one = {"plain": _plain_ab_one, "w8a8": _w8a8_ab_one}[sys.argv[2]]
+        sys.exit(one(sys.argv[3]))
     sys.exit(main())

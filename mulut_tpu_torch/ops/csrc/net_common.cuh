@@ -66,17 +66,17 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat16 x) {
   return __bfloat16_as_ushort(x);
 }
 
-// rows x K bf16 into swizzled K-blocks, kblock bytes apart, at dst (THREADS
-// threads of the block share the copy).  Row r's chunk c (8 bf16) is read
-// from src + r*ld + col(r, c).  Both sides 16-byte aligned.  The copies
-// are asynchronous (cp.async, all of a thread's in flight at once); the
+// rows x K elements of T (bf16 or int8) into swizzled K-blocks, kblock
+// bytes apart, at dst (THREADS threads of the block share the copy).  Row
+// r's 16-byte chunk c (8 bf16 or 16 int8) is read from src + r*ld +
+// col(r, c), in elements.  Both sides 16-byte aligned.  The copies are
+// asynchronous (cp.async, all of a thread's in flight at once); the
 // stager waits for them with stage_wait().
-template <int THREADS, class Col>
-__device__ __forceinline__ void stage_sw128(unsigned char* dst,
-                                            const __nv_bfloat16* src,
+template <int THREADS, class T, class Col>
+__device__ __forceinline__ void stage_sw128(unsigned char* dst, const T* src,
                                             int rows, int K, int ld,
                                             int kblock, Col col) {
-  const int chunks = K / 8;
+  const int chunks = K * (int)sizeof(T) / 16;
   for (int i = threadIdx.x; i < rows * chunks; i += THREADS) {
     const int r = i / chunks;
     const int c = i - r * chunks;

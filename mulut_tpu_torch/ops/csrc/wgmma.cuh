@@ -16,6 +16,14 @@
 // 128-byte swizzle; each 8-row group is one 1024-byte atom, so a K-block
 // must start 1024-byte aligned).  A k16 step at column 16s of a K-block
 // is the descriptor of its base + 32s bytes.
+//
+// int8 (m64nNk32, s8 x s8 -> s32; integer wgmma takes no scale or
+// transpose immediates, and 8-bit B must be K-major): warp w's A fragment
+// is mma.sync's m16n8k32 one, four bytes per register: a[0] row g bytes
+// 4t .. 4t+3 of the k32 slice, a[1] row g+8, a[2] row g bytes 16+4t ..,
+// a[3] row g+8; the s32 accumulator has the float32 one's positions.  One
+// swizzled K-block is N rows of 128 int8 columns, so a k32 step at column
+// 32s is, as a bf16 k16 step, the K-block base + 32s bytes.
 
 #pragma once
 
@@ -71,6 +79,11 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_operands(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (64 x 64) += a (64 x 16, registers) * B (16 x 64 at desc)
@@ -150,6 +163,61 @@ __device__ __forceinline__ void wgmma_n8(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(1));
+}
+
+// d (64 x 128, s32) = a (64 x 32 int8, registers) * B (32 x 128 int8 at
+// desc), plus d itself where acc != 0
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// d (64 x 16, s32) = a (64 x 32 int8) * B (32 x 16 int8 at desc) [+ d]
+__device__ __forceinline__ void wgmma_s8_n16(int (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// d (64 x 8, s32) = a (64 x 32 int8) * B (32 x 8 int8 at desc) [+ d]
+__device__ __forceinline__ void wgmma_s8_n8(int (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
 }  // namespace

@@ -99,7 +99,8 @@ _LANES = 16               # output lanes per rotation (csrc kHeadRows / 4)
 _PLAIN_NF = 128           # csrc/plain_*.cu instantiation (the artifacts)
 _PLAIN_MAX_DEPTH = 4      # csrc/plain_body.cuh kMaxDepth (shared memory)
 _DENSE_NF = 64            # csrc/dense_*.cu instantiation (reference)
-_W8A8_NF = 128            # csrc/plain_w8a8.cu instantiation (the artifacts)
+_W8A8_NF = (128, 256)     # csrc/plain_w8a8.cu instantiations (the artifacts)
+_SMEM_MAX = 232_448       # H100: a block's opt-in shared memory
 _CHUNK = 1 << 19          # plain versions: sites per chunk
 _INV255 = float(np.float32(1 / 255))
 
@@ -964,6 +965,24 @@ def stage_ensemble_apply_q_plain(st: dict, taps: torch.Tensor, *,
     return out
 
 
+def w8a8_smem_bytes(nf: int, depth: int, int_requant: bool,
+                    modes: int) -> tuple[int, bool]:
+    """(dynamic shared memory of a K11 launch, whether it stages all modes
+    at once), as csrc/plain_w8a8.cu's `launch` picks them (`smem_bytes`).
+    A mode's region: the int8 output head (64 x nf) and `depth` nf x nf
+    layers, the head's weights (w1 in 16-byte feature-pair words, b1 in
+    pair words), c6 and b6, the requant constants (4 words per column for
+    "int", 2 for "f32").  All `modes` regions, each rounded up to 1 KB,
+    where they fit a block; else the raw accumulators (16 float per site of
+    a 768-site block) and one region.  Plus 1 KB to align the base."""
+    region = (64 * nf + depth * nf * nf + 10 * nf + 2 * 64 * 4
+              + depth * nf * (4 if int_requant else 2) * 4)
+    every = modes * -(-region // 1024) * 1024 + 1024
+    if every <= _SMEM_MAX:
+        return every, True
+    return 768 * 16 * 4 + region + 1024, False
+
+
 class _Q8Desc(ctypes.Structure):
     """Mirror of `Q8Params` in csrc/plain_w8a8.cu."""
 
@@ -1030,7 +1049,9 @@ def stage_ensemble_apply_q(st: dict, taps: torch.Tensor, *, n_modes: int,
     ("int" constants hmq.. or "f32" hcq/hbq), the int8 output head
     dequantized by fma(o, c6, b6), and acc += round(127 * tanh(.)).
     Columns and v as in `stage_ensemble_apply`.  The JAX twins are
-    `_plain_q_kernel`, `_plain_qw6_kernel` and `_plain_q2_kernel`.
+    `_plain_q_kernel`, `_plain_qw6_kernel` and `_plain_q2_kernel`.  On the
+    card nf is 128 or 256 and one mode's weights must fit a block's shared
+    memory (`w8a8_smem_bytes`: depth 2 at nf=256); else NotImplementedError.
     """
     D, nf, rq = _check_q8_stack(st, n_modes)
     if (taps.dim() != 2 or taps.shape[1] != 16 * n_modes
@@ -1041,10 +1062,16 @@ def stage_ensemble_apply_q(st: dict, taps: torch.Tensor, *, n_modes: int,
     dev = _check_device(taps, *ts)
     if dev.type == "cpu":
         return stage_ensemble_apply_q_plain(st, taps, n_modes=n_modes)
-    if nf != _W8A8_NF:
+    if nf not in _W8A8_NF:
         raise NotImplementedError(
-            f"the CUDA W8A8 kernel (K11) is built for nf={_W8A8_NF}; got "
+            f"the CUDA W8A8 kernel (K11) is built for nf in {_W8A8_NF}; got "
             f"nf={nf}")
+    smem, _ = w8a8_smem_bytes(nf, D, rq is _RQ_INT, n_modes)
+    if smem > _SMEM_MAX:
+        raise NotImplementedError(
+            f"the CUDA W8A8 kernel (K11) stages a mode's weights in shared "
+            f"memory: {smem} B at nf={nf}, depth {D}, over the {_SMEM_MAX} B "
+            "a block can have")
     if not all(t.is_contiguous() for t in ts + [taps]):
         raise ValueError("stage_ensemble_apply_q needs contiguous tensors")
     if taps.data_ptr() % 8 or any(st[k].data_ptr() % 16

@@ -13,7 +13,9 @@ rate at depth 2, both measured here on chip_smoke's own 135 x 240 crop:
   input (share of differing entries) and the uint8 output (share of bytes
   not equal), port against JAX;
 - `test_depth3_gates_follow_the_cpu_rates` holds chip_smoke's depth-3
-  gates to at most the depth-2 gates times that ratio.
+  gates to at most the depth-2 gates times that ratio;
+- `test_depth3_cpu_rates_meet_the_card_gates` holds the depth-3 rates
+  themselves to those gates: the CPU suite's depth-3 parity check.
 
 `PYTHONPATH=. python tests/test_torch_net_depth3.py` prints the rates,
 and also the end-to-end bytes on test_torch_net_evaluate.py's 1x24x32
@@ -115,6 +117,18 @@ def test_depth3_gates_follow_the_cpu_rates():
     assert cs.ACC_FRAC_D3 <= cs.ACC_FRAC * r3[0] / r2[0]
     assert 1 - cs.U8_EQUAL_D3 <= (1 - cs.U8_EQUAL) * r3[1] / r2[1]
     assert cs.ACC_FRAC_D3 >= cs.ACC_FRAC and cs.U8_EQUAL_D3 <= cs.U8_EQUAL
+
+
+def test_depth3_cpu_rates_meet_the_card_gates():
+    """The depth-3 CPU parity check: on chip_smoke's crop the port departs
+    from JAX within the depth-3 rule chip_smoke applies on the card
+    (stage 2's raw share at most ACC_FRAC_D3, bytes equal at least
+    U8_EQUAL_D3, within 2 at least U8_NEAR, none off by more than
+    U8_ABS)."""
+    raw, neq, far, top = flip_rates(3)
+    assert raw <= cs.ACC_FRAC_D3
+    assert 1 - neq >= cs.U8_EQUAL_D3
+    assert 1 - far >= cs.U8_NEAR and top <= cs.U8_ABS
 
 
 def smooth_rates(depth):

@@ -17,8 +17,10 @@ JAX package.
   JAX `srnets_predict_fast` on the JAX quantized stacks: at least 99.9% of
   uint8 bytes equal, none off by more than 2.
 - The kernel's register dataflow: a NumPy model of `mma.sync.m16n8k32`'s
-  fragment layouts, fed as csrc/plain_w8a8.cu feeds it from the stack's
-  permuted input axis, gives the plain matrix product.
+  fragment layouts (per warp, those of the int8 `wgmma` m64nNk32 that
+  csrc/plain_w8a8.cu runs; tests/test_torch_w8a8_wgmma.py models the
+  warpgroup and the staged B), fed with the kernel's packing from the
+  stack's permuted input axis, gives the plain matrix product.
 
 Every JAX forward runs under `jax.jit`.  Params are the same NumPy arrays
 for both packages.  Each unit is calibrated once per package (fixture
@@ -381,7 +383,8 @@ def test_quant_gating(monkeypatch, calibrate_once):
 
 
 # ---------------------------------------------------------------------------
-# the kernel's fragment dataflow (csrc/plain_w8a8.cu), modelled in NumPy
+# the kernel's fragment dataflow (csrc/plain_w8a8.cu), modelled in NumPy:
+# one warp's slice of its int8 wgmma, mma.sync m16n8k32's layouts
 # ---------------------------------------------------------------------------
 
 
