@@ -130,6 +130,33 @@ batch):
      `srnets_predict_fast` device ms beside the K3 route's, and
      `upscale_batch` host ms.
 
+Then the training half (`_training_half`; no kernel of its own: train,
+transfer and fine-tune run as PyTorch ops on the card):
+
+ 13. a synthetic DIV2K tree written without PIL (HR images from the port's
+     `_synth_image`, LR by a 4 x 4 box average, the two pickled caches
+     `DIV2K` loads and the HR names it lists), no benchmark tree; step 1
+     at the reference width (dense units, nf=64, depth 4, x4, 2 stages,
+     `sdy`, batch 32 of 48 x 48 LR crops): one train step's loss and
+     every gradient on the card against the port's CPU path from the same
+     params and batch (TRAIN_LOSS_REL, TRAIN_GRAD_REL), then
+     `train(opt)` for TRAIN["steps"] steps, each step timed with CUDA
+     events (median of steps 6 on), the losses finite, peak memory, a
+     profile of three steps; step 2:
+     `transfer_to_luts` of the trained params and of the `_ftr2` weights
+     on the card against the CPU path (at most CACHE_FLIP_SHARE of a
+     table's entries off, by one level: tie flips, each counted), ms per
+     unit; step 3: from the `_ftr2` tables, `lut_model_forward` on the
+     batch byte-equal to the CPU path, one fine-tune step's loss and
+     gradients against the CPU path (FT_LOSS_REL, FT_GRAD_REL), then
+     `finetune(opt)` for TRAIN["ft_steps"] steps, timed, its peak memory
+     and a profile of three steps; the
+     deploy: the fine-tuned tables through `LutEvaluator` on the batch of
+     phase 5, bytes equal to the CPU path, 6 window contractions and 1
+     tail launched, and the cascade and each contraction call site timed
+     beside phase 6's random-table times, on the batch and on 8
+     structured frames (`_synth_image`).
+
 Prints a `{"kernels": [...]}` line (K1 in both forms, K2-K11; K8 with the
 float32 head) and
 ends with one `{"ok": true, "device": {...}}` line.  Any failed phase
@@ -148,6 +175,11 @@ own.  They print readings only.
 
 prints each kernel instance's SASS instruction count by opcode
 (`cuobjdump`; default source plain_w8a8).
+
+    python3 chip_smoke.py --training
+
+builds the kernels and runs phase 13 alone (its deploy timings without
+phase 6's beside them); readings and gates as in the full run.
 """
 
 from __future__ import annotations
@@ -219,6 +251,7 @@ REPLACES_K8 = "mulut_tpu/ops/unit_kernel.py:374"
 NET_WEIGHTS = "artifacts/mxu_distilled_x4sdy_nf128_d2_ftr2.npz"
 BF16_FLOPS_PER_MS = 989e9          # H100 SXM dense bf16 tensor cores
 INT8_OPS_PER_MS = 1979e9           # H100 SXM dense int8 tensor cores
+FP32_FLOPS_PER_MS = 67e9           # H100 SXM float32, no tensor cores
 #: Kernel vs plain version, per call: at most ACC_FRAC of the entries may
 #: differ; the mixed outputs by at most MIX_ABS greylevels, the raw
 #: accumulator (a sum of 4M rounded passes) by at most RAW_ABS.  Tensor
@@ -242,6 +275,20 @@ U8_EQUAL, U8_NEAR, U8_ABS = 0.999, 0.9999, 8
 #: gates stay as they are.
 ACC_FRAC_D3, U8_EQUAL_D3 = 1.5e-3, 0.998
 CROP_H, CROP_W = 135, 240
+#: Phase 13 (the training half): the reference training config (TrainOptions
+#: defaults: dense units, nf=64, batch 32 of 48 x 48 LR crops), steps of
+#: `train` and `finetune`, the synthetic DIV2K tree's images.
+TRAIN = dict(nf=64, batch=32, crop=48, steps=20, ft_steps=10, images=8,
+             hr=256)
+#: Card vs CPU path on one training step, the CPU tests' tolerances against
+#: JAX (tests/test_torch_train.py, test_torch_finetune.py): the loss within
+#: relative *_LOSS_REL, each gradient tensor within *_GRAD_REL of its
+#: largest magnitude (float32 sums in other orders; a train step's STE
+#: rounds may flip a tie).  LUT caching: at most CACHE_FLIP_SHARE of a
+#: table's entries off, each by one level (tests/test_torch_transfer.py).
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-4
+FT_LOSS_REL, FT_GRAD_REL = 1e-6, 1e-6
+CACHE_FLIP_SHARE = 2e-5
 #: K10 vs its plain version, in steps of 1/127 of its bf16 tanh outputs:
 #: at most ACC_FRAC of the entries may differ, by at most K10_ABS (a
 #: flipped bf16 activation or output rounding, as for K4).
@@ -316,9 +363,10 @@ def _record_calls(mod, names, run):
     return [calls[n] for n in names]
 
 
-def _profile(torch, cascade, dev_ms: float, runs: int = 3, top: int = 15):
-    """Where the cascade's device time goes: torch.profiler over `runs`
-    cascades, device time per op (self time, summed over the runs)."""
+def _profile(torch, cascade, dev_ms: float, runs: int = 3, top: int = 15,
+             what: str = "cascade"):
+    """Where the device time of `cascade()` (one `what`) goes: torch.profiler
+    over `runs` calls, device time per op (self time, per call)."""
     from torch.profiler import ProfilerActivity, profile
 
     cascade()
@@ -333,8 +381,9 @@ def _profile(torch, cascade, dev_ms: float, runs: int = 3, top: int = 15):
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0)
-        if t <= 0:
-            continue
+        if (t <= 0 or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
+            continue    # a range over other kernels (torch.optim's step)
         row = (t / runs / 1e3, e.count // runs, e.key)
         # device-side rows are the kernels themselves; host-side rows are
         # the torch ops that launched them (same time, counted once each)
@@ -345,9 +394,9 @@ def _profile(torch, cascade, dev_ms: float, runs: int = 3, top: int = 15):
         return
     busy = sum(r[0] for r in kernels)
     print(f"profile: device busy {busy:.3f} ms of {dev_ms:.3f} ms per "
-          f"cascade (idle share {max(0.0, 1 - busy / dev_ms):.3f})")
+          f"{what} (idle share {max(0.0, 1 - busy / dev_ms):.3f})")
     for title, rows in (("kernels", kernels), ("torch ops", ops)):
-        print(f"profile, top {title} by device time per cascade:")
+        print(f"profile, top {title} by device time per {what}:")
         for ms, n, name in sorted(rows, reverse=True)[:top]:
             print(f"  {ms:8.3f} ms  x{n:<4d} {name[:100]}")
 
@@ -1944,6 +1993,7 @@ def main() -> int:
           f"ms/batch = {mpix / dev_ms * 1e3:.2f} MPix/s")
 
     wf = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    wf_site_ms = {}     # per call site, for phase 13's tables beside these
     for site, ((tab, xp), kw1) in zip(sites, wf_calls):
         u, out_w = kw1["u"], tk.window_fold_contract(tab, xp, **kw1)
         n = xp.shape[0] * kw1["grid"][0] * kw1["grid"][1]
@@ -1964,6 +2014,7 @@ def main() -> int:
         }
         for key in wf:
             wf[key] += t[key]
+        wf_site_ms[site] = t["ms"]
         print(f"window_fold_contract {site}: u={u} rotations="
               f"{len(kw1['taps'])} sites={n} row_corner_pairs={n_pairs} "
               f"bytes={nbytes} "
@@ -2012,6 +2063,7 @@ def main() -> int:
     net_entries.append(_quant_mode(torch, tk, imgs))
     net_entries += _dense_routes(torch, tk, imgs)
     net_entries += _plain_routes(torch, tk, imgs)
+    _training_half(torch, tk, imgs, (dev_ms, wf_site_ms))
 
     print(json.dumps({"kernels": [
         {"name": "window_fold_contract", "route": "cuda",
@@ -2230,12 +2282,387 @@ def _sass(names) -> int:
     return 0
 
 
+def _synthetic_div2k(root: str, *, images: int, hr: int, seed: int = 0):
+    """A DIV2K tree that `data.DIV2K` reads, written without PIL: HR
+    images from the port's `_synth_image`, x4 LR images by a 4 x 4 box
+    average, the two pickled caches `DIV2K` loads and the HR names it
+    lists (empty files)."""
+    from mulut_tpu_torch.data.synthetic import _synth_image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "HR"))
+    hr_ims, lr_ims = {}, {}
+    for i in range(1, images + 1):
+        name = f"{i:04d}"
+        im = _synth_image(rng, hr)
+        lr = im.reshape(hr // SCALE, SCALE, hr // SCALE, SCALE, 3).mean((1, 3))
+        hr_ims[name], lr_ims[name] = im, np.round(lr).astype(np.uint8)
+        open(os.path.join(root, "HR", f"{name}.png"), "wb").close()
+    np.save(os.path.join(root, "cache_hr.npy"), hr_ims, allow_pickle=True)
+    np.save(os.path.join(root, f"cache_lr_x{SCALE}.npy"), lr_ims,
+            allow_pickle=True)
+
+
+def _train_opt(train_dir, val_dir, exp, **kw):
+    """`utils/options.py` TrainOptions' attributes for `train` and
+    `finetune`: its defaults with this phase's sizes."""
+    import types
+
+    base = dict(nf=TRAIN["nf"], arch="dense", unitDepth=0, modes=MODES,
+                stages=STAGES, scale=SCALE, interval=INTERVAL,
+                batchSize=TRAIN["batch"], cropSize=TRAIN["crop"],
+                trainDir=train_dir, valDir=val_dir, startIter=0,
+                totalIter=TRAIN["steps"], lr0=1e-3, lr1=1e-4, weightDecay=0,
+                displayStep=5, valStep=100_000, saveStep=100_000,
+                workerNum=4, expDir=exp, valoutDir=os.path.join(exp, "val"),
+                debug=False, trainPrecision="f32", gpuNum=1)
+    base.update(kw)
+    os.makedirs(exp, exist_ok=True)
+    return types.SimpleNamespace(**base)
+
+
+def _timed_steps(torch, module, name, dev):
+    """Wrap `module.<name>` (a step factory) so that each step it makes
+    is timed with CUDA events on `dev` (host clock on the CPU, where
+    this phase is rehearsed) and its loss kept; returns the record and a
+    function that restores the factory."""
+    rec = {"ms": [], "loss": []}
+    make = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(*args):
+            if dev.type == "cuda":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                out = step(*args)
+                ev[1].record()
+                rec["ms"].append(ev)
+            else:
+                t0 = time.perf_counter()
+                out = step(*args)
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["loss"].append(out)
+            return out
+
+        return timed
+
+    setattr(module, name, wrapped)
+    return rec, lambda: setattr(module, name, make)
+
+
+def _step_readings(torch, rec, what):
+    """Per-step ms and losses of a `_timed_steps` record: prints them,
+    fails on a loss that is not finite; returns the median ms of steps 6
+    on."""
+    if rec["ms"] and not isinstance(rec["ms"][0], float):
+        torch.cuda.synchronize()
+        rec["ms"] = [a.elapsed_time(b) for a, b in rec["ms"]]
+    losses = [float(x) for x in rec["loss"]]
+    print(f"{what}: {len(losses)} steps, loss per step "
+          + " ".join(f"{x:.6f}" for x in losses))
+    if not losses or not all(np.isfinite(losses)):
+        raise RuntimeError(f"{what}: losses {losses}")
+    med = float(np.median(rec["ms"][5:] or rec["ms"]))
+    print(f"{what}: ms per step (CUDA events) "
+          + " ".join(f"{x:.3f}" for x in rec["ms"])
+          + f"; median of steps 6-{len(losses)}: {med:.3f}")
+    return med
+
+
+def _grad_gate(what, got, want, loss_rel, grad_rel):
+    """One step's (loss, {name: grad}) on the card against the CPU path."""
+    (lg, gg), (lw, gw) = got, want
+    rel = abs(lg - lw) / abs(lw)
+    worst, worst_key = 0.0, None
+    for k, w in gw.items():
+        r = float((gg[k].cpu() - w).abs().max() / w.abs().max())
+        if r > worst:
+            worst, worst_key = r, k
+    print(f"{what}: loss card {lg:.9g} CPU {lw:.9g} (rel {rel:.3e}, gate "
+          f"{loss_rel}); worst gradient {worst_key} rel to its max "
+          f"{worst:.3e} (gate {grad_rel}) over {len(gw)} tensors")
+    if not rel <= loss_rel or not worst <= grad_rel:
+        raise RuntimeError(f"{what}: card departs from the CPU path")
+
+
+def _loss_and_grads(torch, loss_fn, leaves):
+    """Run `loss_fn()` and its backward; (loss, {name: grad on the CPU})."""
+    loss = loss_fn()
+    loss.backward()
+    return loss.item(), {k: t.grad.detach().cpu() for k, t in leaves}
+
+
+def _cascade_sites(torch, tk, ev, x, what, phase6):
+    """The LUT cascade on `ev`'s tables and the (B, C, H, W) card batch
+    `x`: device ms and each contraction call site's ms, beside phase 6's
+    random-table readings when given."""
+    def cascade():
+        return tk.lut_cascade_packed(ev.luts, x, stages=STAGES, modes=MODES,
+                                     scale=SCALE, interval=INTERVAL)
+
+    (calls,) = _record_calls(tk, ("window_fold_contract",), cascade)
+    sites = ["s1_s", "s1_d", "s1_y", "s2_s", "s2_d", "s2_y"]
+    ms = _cuda_ms(torch, cascade, 10)
+    ref_ms, ref_sites = phase6 if phase6 else (None, {})
+
+    def beside(site=None):
+        ref = ref_ms if site is None else ref_sites.get(site)
+        return (f" (phase 6, random tables: {ref:.4f})" if ref is not None
+                else " (phase 6 not run)")
+
+    print(f"{what}: lut_cascade_packed {ms:.4f} ms per batch" + beside())
+    total = 0.0
+    for site, ((tab, xp), kw) in zip(sites, calls, strict=True):
+        t = _cuda_ms(torch, lambda: tk.window_fold_contract(tab, xp, **kw),
+                     20)
+        total += t
+        print(f"{what}: window_fold_contract {site} {t:.4f} ms" + beside(site))
+    print(f"{what}: window_fold_contract, the 6 call sites {total:.4f} ms"
+          + (f" (phase 6: {sum(ref_sites.values()):.4f})" if ref_sites
+             else ""))
+
+
+def _training_half(torch, tk, imgs, phase6=None, *, dev="cuda", sizes=None):
+    """Phase 13: the training half on the card (module docstring).  `dev`
+    and `sizes` (keys of TRAIN) exist for a rehearsal on the CPU at a
+    small size; the card run takes the defaults."""
+    import tempfile
+
+    from mulut_tpu_torch.data import DIV2K
+    from mulut_tpu_torch.models import lut_model as lm
+    from mulut_tpu_torch.models.srnet import init_srnets
+    from mulut_tpu_torch.models.torch_import import load_params_npz
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.ops.resize import full_f32_matmul
+    from mulut_tpu_torch.pipelines import finetune as ftm
+    from mulut_tpu_torch.pipelines import train as trm
+    from mulut_tpu_torch.pipelines import transfer as tfm
+    from mulut_tpu_torch.pipelines.evaluate import LutEvaluator
+    from mulut_tpu_torch.utils.lut_io import lut_filename
+
+    dev = torch.device(dev)
+    size = dict(TRAIN, **(sizes or {}))
+    cfg = dict(modes=MODES, stages=STAGES)
+    card = dev.type == "cuda"
+
+    def peak_reset():
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        if not card:
+            return "not measured (CPU)"
+        torch.cuda.synchronize()
+        return f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+
+    with tempfile.TemporaryDirectory() as root:
+        train_dir = os.path.join(root, "DIV2K")
+        val_dir = os.path.join(root, "no_benchmark")
+        os.makedirs(val_dir)
+        _synthetic_div2k(train_dir, images=size["images"], hr=size["hr"])
+        im, lb = DIV2K(SCALE, train_dir, size["crop"], seed=0).sample_batch(
+            size["batch"])
+        print(f"training half: synthetic DIV2K {size['images']} x "
+              f"{size['hr']}^2 (x{SCALE} LR by box average, pickled caches, "
+              f"no PIL); batch {im.shape} -> {lb.shape} uint8")
+
+        # 13a. step 1: one step, card against the CPU path
+        params = init_srnets(np.random.default_rng(0), nf=size["nf"],
+                             arch="dense", scale=SCALE, **cfg)
+        step_io = {}
+        for d in (dev, torch.device("cpu")):
+            p = trm.trainable(params, d)
+            leaves = [((u, n), p[u][n]) for u in sorted(p) for n in
+                      sorted(p[u])]
+            t0 = time.perf_counter()
+            with full_f32_matmul():
+                step_io[d.type] = _loss_and_grads(torch, lambda: trm.train_loss(
+                    p, torch.from_numpy(im).to(d), torch.from_numpy(lb).to(d),
+                    scale=SCALE, **cfg), leaves)
+            print(f"train step loss + backward on {d.type}: "
+                  f"{time.perf_counter() - t0:.2f} s (first call, host clock)")
+            del p, leaves
+        _grad_gate("train step, card vs CPU", step_io[dev.type],
+                   step_io["cpu"], TRAIN_LOSS_REL, TRAIN_GRAD_REL)
+        del step_io
+
+        # 13b. train(opt)
+        rec, restore = _timed_steps(torch, trm, "make_train_step", dev)
+        opt = _train_opt(train_dir, val_dir, os.path.join(root, "train"),
+                         totalIter=size["steps"], nf=size["nf"],
+                         batchSize=size["batch"], cropSize=size["crop"])
+        peak_reset()
+        try:
+            trained = trm.train(opt, device=dev)
+        finally:
+            restore()
+        train_ms = _step_readings(torch, rec, "train(opt)")
+        # the bound: forward multiply-adds of every unit pass (4 rotations x
+        # M modes per LR site and stage), x2 flops, x3 with the backward
+        # (input and weight gradients), over the float32 peak outside the
+        # tensor cores (TF32 is off)
+        macs = sum(t.size for s_ in range(STAGES) for n, t in
+                   params[f"s{s_ + 1}_{MODES[0]}"].items() if n[0] == "w")
+        flops = 3 * 2 * macs * size["batch"] * size["crop"] ** 2 * 4 * len(
+            MODES)
+        print(f"train(opt): {train_ms:.3f} ms per step, peak memory "
+              f"{peak()}; bound {flops / FP32_FLOPS_PER_MS:.3f} ms "
+              f"({flops / 1e12:.4f} TFLOP per step over 67 TFLOP/s float32)")
+        batch = (torch.from_numpy(im).to(dev), torch.from_numpy(lb).to(dev))
+        if card:        # on a copy of the trained params
+            p = trm.trainable(trained, dev)
+            step = trm.make_train_step(trm.make_optimizer(
+                trm.param_leaves(p), 1e-3, 1e-4, 100), scale=SCALE, **cfg)
+            _profile(torch, lambda: step(p, *batch), train_ms, top=12,
+                     what="train step")
+            del p, step
+
+        # 13c. step 2: transfer, card against the CPU path
+        ftr2 = load_params_npz(NET_WEIGHTS)
+        tables = {}
+        for what, p in (("trained", trained), ("ftr2", ftr2)):
+            flips, unit_ms = 0, []
+            for key in sorted(p):
+                if card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = tfm.cache_lut(p[key], device=dev)
+                unit_ms.append((time.perf_counter() - t0) * 1e3)
+                want = tfm.cache_lut(p[key], device="cpu")
+                d = np.abs(got.astype(int) - want.astype(int))
+                off = np.argwhere(d > 0)
+                flips += len(off)
+                print(f"transfer {what} {key}: {got.shape} int8, "
+                      f"{len(off)} entries off the CPU path"
+                      + (f" (first row {off[0][0]} lane {off[0][1]}: card "
+                         f"{got[tuple(off[0])]}, CPU {want[tuple(off[0])]})"
+                         if len(off) else ""))
+                if d.max() > 1 or len(off) > CACHE_FLIP_SHARE * d.size:
+                    raise RuntimeError(f"transfer {what} {key}: {len(off)} "
+                                       f"entries off, max {d.max()}")
+                tables.setdefault(what, {})[key] = got
+            print(f"transfer {what}: {flips} tie flips in all; ms per unit "
+                  "(host clock, params to the card and the table back) "
+                  + " ".join(f"{x:.2f}" for x in unit_ms)
+                  + f"; median {float(np.median(unit_ms)):.2f}")
+
+        # 13d. step 3: fine-tune the _ftr2 tables
+        ft_exp = os.path.join(root, "finetune")
+        os.makedirs(ft_exp)
+        for key, arr in tables["ftr2"].items():
+            np.save(os.path.join(ft_exp, lut_filename(
+                "LUT", SCALE, INTERVAL, int(key[1]), key[3:])), arr)
+        ft_io, fwd = {}, {}
+        for d in (dev, torch.device("cpu")):
+            w = lm.init_lut_weights_from_arrays(tables["ftr2"], upscale=SCALE,
+                                                device=d, **cfg)
+            x = lm.unit_pixels(torch.from_numpy(im).to(d))
+            with torch.no_grad():
+                fwd[d.type] = lm.lut_model_forward(
+                    w, x, upscale=SCALE, device=d, **cfg).cpu()
+            for t in w.values():
+                t.requires_grad_(True)
+            t0 = time.perf_counter()
+            ft_io[d.type] = _loss_and_grads(torch, lambda: ftm.finetune_loss(
+                w, torch.from_numpy(im).to(d), torch.from_numpy(lb).to(d),
+                upscale=SCALE, interval=INTERVAL, **cfg), sorted(w.items()))
+            print(f"fine-tune step loss + backward on {d.type}: "
+                  f"{time.perf_counter() - t0:.2f} s (first call, host clock)")
+            del w
+        n_off = int((fwd[dev.type] != fwd["cpu"]).sum())
+        print(f"lut_model_forward {tuple(fwd['cpu'].shape)}: {n_off} values "
+              "differ between the card and the CPU path")
+        if n_off:
+            raise RuntimeError("lut_model_forward: card differs from CPU")
+        _grad_gate("fine-tune step, card vs CPU", ft_io[dev.type],
+                   ft_io["cpu"], FT_LOSS_REL, FT_GRAD_REL)
+        del ft_io, fwd
+
+        rec, restore = _timed_steps(torch, ftm, "make_finetune_step", dev)
+        opt = _train_opt(train_dir, val_dir, ft_exp, totalIter=size[
+            "ft_steps"], batchSize=size["batch"], cropSize=size["crop"])
+        peak_reset()
+        try:
+            weights = ftm.finetune(opt, device=dev)
+        finally:
+            restore()
+        ft_ms = _step_readings(torch, rec, "finetune(opt)")
+        print(f"finetune(opt): {ft_ms:.3f} ms per step, peak memory {peak()}")
+        if card:        # on a copy of the fine-tuned tables
+            w = {k: t.detach().clone().requires_grad_(True)
+                 for k, t in weights.items()}
+            step = ftm.make_finetune_step(trm.make_optimizer(
+                [w[k] for k in sorted(w)], 1e-3, 1e-4, 100), upscale=SCALE,
+                interval=INTERVAL, **cfg)
+            _profile(torch, lambda: step(w, *batch), ft_ms, top=12,
+                     what="fine-tune step")
+            del w, step
+
+        # 13e. deploy the fine-tuned tables
+        luts = lm.export_lut_weights(weights)
+        ev = LutEvaluator(luts, stages=STAGES, modes=MODES, scale=SCALE,
+                          interval=INTERVAL, device=dev)
+        _reset(tk.LAUNCHES, uk.LAUNCHES)
+        out = ev.upscale_batch(imgs)
+        launches = dict(tk.LAUNCHES)
+        want_launches = {"gather_fold_contract": 0,
+                         "window_fold_contract": 6, "tail_assemble": 1}
+        if card and (launches != want_launches or any(uk.LAUNCHES.values())):
+            raise RuntimeError(f"deploy launches {launches}, expected "
+                               f"{want_launches}")
+        ref = LutEvaluator(luts, stages=STAGES, modes=MODES, scale=SCALE,
+                           interval=INTERVAL, device="cpu").upscale_batch(imgs)
+        if not np.array_equal(out, ref):
+            raise RuntimeError(f"deploy: {int((out != ref).sum())} bytes "
+                               "differ from the CPU path")
+        print(f"deploy: fine-tuned tables, upscale_batch {imgs.shape} -> "
+              f"{out.shape} byte-equal to the CPU path, launches {launches}")
+        if not card:
+            return
+        x = torch.from_numpy(np.ascontiguousarray(
+            imgs.transpose(0, 3, 1, 2))).to(dev)
+        _cascade_sites(torch, tk, ev, x, "deploy, bench batch", phase6)
+        from mulut_tpu_torch.data.synthetic import _synth_image
+
+        rng = np.random.default_rng(1)
+        frames = np.stack([_synth_image(rng, W)[:H] for _ in range(BATCH)])
+        x = torch.from_numpy(np.ascontiguousarray(
+            frames.transpose(0, 3, 1, 2))).to(dev)
+        _cascade_sites(torch, tk, ev, x, "deploy, structured frames", phase6)
+
+
+def _training_only() -> int:
+    """`--training`: the card, the kernel build and phase 13 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mulut_tpu_torch.ops import _build
+    from mulut_tpu_torch.ops import tail_kernel as tk
+
+    print(f"card: {_card()}")
+    _build.build_all()
+    rng = np.random.default_rng(0)      # phase 3's draws: the same batch
+    _random_luts(rng)
+    imgs = rng.integers(0, 256, (BATCH, H, W, 3), dtype=np.int64).astype(
+        np.uint8)
+    _training_half(torch, tk, imgs)
+    print(f"card: {_card()}")
+    return 0
+
+
 if __name__ == "__main__":
     ab = {"--plain-ab": "plain", "--w8a8-ab": "w8a8"}
     if sys.argv[1:2] and sys.argv[1] in ab:
         sys.exit(_ab(ab[sys.argv[1]], sys.argv[2:]))
     if sys.argv[1:2] == ["--sass"]:
         sys.exit(_sass(sys.argv[2:]))
+    if sys.argv[1:2] == ["--training"]:
+        sys.exit(_training_only())
     if sys.argv[1:2] == ["--ab-one"]:
         one = {"plain": _plain_ab_one, "w8a8": _w8a8_ab_one}[sys.argv[2]]
         sys.exit(one(sys.argv[3]))

@@ -4,7 +4,10 @@ Slice 1: the LUT-retrieval deployment path (`pipelines.evaluate.LutEvaluator`
 over the packed x4 cascade, `ops.tail_kernel`).  Slice 2: net mode
 (`pipelines.evaluate.NetEvaluator`: `models.srnet` over the stage-ensemble
 kernels of `ops.unit_kernel`).  Slice 3: W8A8 net mode
-(`NetEvaluator(quant=...)`: `ops.quant` and the int8 kernel).  The
-kernels are hand-written CUDA in `ops/csrc/`.  Imports torch and numpy
-only.
+(`NetEvaluator(quant=...)`: `ops.quant` and the int8 kernel).  Slices 4-9:
+the kernels' other routes and their redesigns for the card.  Slice 10: the
+training half, steps 1-3 as PyTorch ops (`pipelines.train`,
+`pipelines.transfer`, `pipelines.finetune`, `models.lut_model`, `data`).
+The kernels are hand-written CUDA in `ops/csrc/`.  Imports torch, numpy
+and scipy; PIL only inside the functions that read or write images.
 """

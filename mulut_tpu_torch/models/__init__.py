@@ -1,1 +1,2 @@
-"""SRNets tap-MLP models, their fast stacks and weight import."""
+"""SRNets tap-MLP models, their fast stacks, weight import and
+checkpoints, and the LUT-as-model of fine-tuning."""

@@ -39,6 +39,7 @@ import torch
 
 from ..ops import unit_kernel as uk
 from ..ops.ensemble import _pad_all
+from ..ops.simplex import clip, div_add, round_ste
 from ..ops.taps import lane_rotation_perm, mode_pad, rotated_taps
 from .blocks import apply_mulut_unit, init_mulut_unit, unit_layout
 
@@ -133,18 +134,34 @@ def _interleave_nchw(out: torch.Tensor, upscale: int) -> torch.Tensor:
 
 
 def srnets_predict(params: dict, x: torch.Tensor, *, modes: str, stages: int,
-                   scale: int, unit_impl: str = "xla") -> torch.Tensor:
-    """Cascade forward, the JAX package's `phase="valid"` (ref:
-    sr/1_train_model.py:26-45): per rotation the unit output is scaled by
-    127 and rounded before accumulating; inner stages mix with avg 4M, bias
-    127, clip and renormalize; the final stage mixes with avg M, values in
-    about [0, 255].  x: (B, C, H, W) in [0, 1].
+                   scale: int, phase: str = "valid",
+                   unit_impl: str = "xla") -> torch.Tensor:
+    """Cascade forward (ref: sr/1_train_model.py:26-45): per rotation the
+    unit output is scaled by 127 and rounded before accumulating; inner
+    stages mix with avg 4M, bias 127, clip and renormalize; the final stage
+    mixes with avg M.  x: (B, C, H, W) in [0, 1].
 
-    Float32 x and params run the float32 forward (the inner mix in XLA's
-    jitted form, `uk.inner_mix`).  bf16 x and params (`unit_impl="pallas"`
-    on dense units: K10) keep the JAX package's dtype flow: every scale,
-    round, sum (over float32 partial sums) and mix is a bf16 op."""
+    phase "valid" (the default here, the deployment form the evaluators
+    call) returns values in about [0, 255]; phase "train" (the JAX
+    package's default) divides them by 255 and is differentiable end to
+    end: every round is `round_ste`, the inner mix `round_ste(clip(...))`,
+    with JAX's gradients (`ops.simplex`).
+
+    Float32 x and params run the float32 forward (the mixes in XLA's
+    jitted form: `uk.inner_mix`, `div_add`).  bf16 x and params
+    (`unit_impl="pallas"` on dense units: K10; valid phase only) keep the
+    JAX package's dtype flow: every scale, round, sum (over float32 partial
+    sums) and mix is a bf16 op."""
+    if phase not in ("train", "valid"):
+        raise ValueError(f"phase must be 'train' or 'valid', got {phase!r}")
+    train = phase == "train"
     bf16 = x.dtype == torch.bfloat16
+    if train and bf16:
+        raise NotImplementedError(
+            "the train phase runs float32 (trainPrecision='bf16' is ROADMAP "
+            "Queue A item 7's remainder)")
+    rnd = round_ste if train else torch.round
+    M = len(modes)
     for s in range(stages):
         stage = s + 1
         upscale = unit_upscale(stage, stages, scale)
@@ -153,15 +170,22 @@ def srnets_predict(params: dict, x: torch.Tensor, *, modes: str, stages: int,
             lanes = srnet_rotation_lanes(params[f"s{stage}_{mode}"], x,
                                          mode=mode, upscale=upscale,
                                          unit_impl=unit_impl)
-            pred = pred + torch.round(lanes * 127.0).sum(dim=0)
+            pred = pred + rnd(lanes * 127.0).sum(dim=0)
         if stage == stages:
-            x = _interleave_nchw(uk.final_mix(pred, len(modes)), upscale)
+            if train:
+                x = _interleave_nchw(round_ste(div_add(pred, M, 0.0)),
+                                     upscale) * uk._INV255
+            else:
+                x = _interleave_nchw(uk.final_mix(pred, M), upscale)
+        elif train:
+            mixed = round_ste(clip(div_add(pred[..., 0], 4 * M, 127.0),
+                                   0.0, 255.0))
+            x = mixed * uk._INV255
         elif bf16:
-            mixed = torch.round(torch.clamp(pred / (4 * len(modes)) + 127.0,
-                                            0, 255))
+            mixed = torch.round(torch.clamp(pred / (4 * M) + 127.0, 0, 255))
             x = mixed[..., 0] / 255.0
         else:
-            x = uk.inner_mix(pred[..., 0], len(modes), dtype=torch.float32)
+            x = uk.inner_mix(pred[..., 0], M, dtype=torch.float32)
     return x
 
 

@@ -1,8 +1,9 @@
 """Load SRNets weights: reference PyTorch checkpoints, `.npz` registries,
 and the carry-over of NumPy parameter dicts into the port's tensors.
 
-Torch twin of `mulut_tpu.models.torch_import` (without its optimizer-state
-helpers, which belong to training).  The reference saves whole-model
+Torch twin of `mulut_tpu.models.torch_import`; the optimizer state is
+saved in the port's own format (a `torch.optim` state dict as arrays),
+not as optax's leaves.  The reference saves whole-model
 pickles (ref: sr/1_train_model.py:63-64) whose unpickling needs the classes
 `model.SRNets`, `common.network.*`; minimal stub classes are registered
 under those names so pickle can restore instance state, then the
@@ -114,3 +115,40 @@ def params_from_numpy(params: dict, device) -> dict:
 
     return {unit_key: {name: conv(arr) for name, arr in unit.items()}
             for unit_key, unit in params.items()}
+
+
+def save_opt_state_npz(path: str, optimizer) -> None:
+    """Persist a `torch.optim` optimizer's per-parameter state (the Adam
+    moments and the update count that drives the cosine-LR phase) as
+    arrays `state/{param index}/{name}`.
+
+    Completes the reference's abandoned intent — its optimizer save is
+    commented out (ref: sr/1_train_model.py:65-66) and its resume is broken
+    (ref: sr/1_train_model.py:157-164) — so a resumed run follows the same
+    trajectory as an uninterrupted one."""
+    flat = {}
+    for i, st in optimizer.state_dict()["state"].items():
+        for name, val in st.items():
+            flat[f"state/{i}/{name}"] = torch.as_tensor(val).detach().cpu() \
+                .numpy()
+    np.savez(path, **flat)
+
+
+def load_opt_state_npz(path: str, template):
+    """Restore a state saved by `save_opt_state_npz` into `template`, an
+    optimizer of the same config over the same parameters (it supplies
+    the parameter groups; the file supplies the state), and return it."""
+    flat = np.load(path)
+    state: dict = {}
+    for k in flat.files:
+        _, i, name = k.split("/")
+        state.setdefault(int(i), {})[name] = torch.from_numpy(flat[k])
+    groups = template.state_dict()["param_groups"]
+    n = sum(len(g["params"]) for g in groups)
+    if sorted(state) != list(range(n)):
+        raise ValueError(
+            f"optimizer-state mismatch: {path} holds state for {len(state)} "
+            f"parameters, the optimizer has {n} — was the model config "
+            "changed?")
+    template.load_state_dict({"state": state, "param_groups": groups})
+    return template

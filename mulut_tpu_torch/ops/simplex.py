@@ -1,4 +1,5 @@
-"""Exact integer 4-D simplex (tetrahedral) interpolation over MuLUT tables.
+"""4-D simplex (tetrahedral) interpolation over MuLUT tables: the exact
+integer path of deployment and the differentiable path of LUT fine-tuning.
 
 The reference selects one of 24 corner/weight assignments per pixel through
 a chain of masked branches (ref: sr/4_test_lut.py:148-231).  Here the
@@ -11,13 +12,27 @@ Conventions: LUTs are flat (L**4, v) tables indexed a*L^3 + b*L^2 + c*L + d
 [0, 255].  Weighted sums are integer-valued float32 below 2**24, so every
 summation order is exact.
 
-Torch twin of the integer path of `mulut_tpu.ops.simplex`.
+The differentiable path (`simplex_planes_diff`,
+`simplex_planes_expanded_diff`, `expand_weight`; ref: sr/model.py:69-287)
+drives STE fine-tuning: gradients flow into the LUT entries through the
+corner gathers and into the input through the fractional weights.  Its
+forward values reproduce the JAX package's jitted arithmetic, and
+`round_ste`, `clip` and `div_add` give the gradients JAX's autodiff gives.
+
+Torch twin of `mulut_tpu.ops.simplex`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from . import simplex_tables
+from .taps import mode_pad, mode_taps
+
+_WEIGHT_COEFFS = simplex_tables.weight_coeffs()  # (64, 5, 5) int32
 
 # Corner mask m -> its (a, b, c, d) bits (bit 3 = a).
 _CORNER_BITS = np.array(
@@ -125,3 +140,229 @@ def simplex_planes_quad_int(luts4, planes4, *, v: int, interval: int = 4):
         o = (lam.unsqueeze(-1) * g).sum(1)                    # (N, v)
         out = o if out is None else out + o
     return out.to(torch.int32).reshape(*lead, v)
+
+
+# ---------------------------------------------------------------------------
+# The differentiable path (STE fine-tuning)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(L: int):
+    """NumPy decision tables: corner offsets (64, 5) and weight
+    coefficients (64, 5, 5), as in the JAX package."""
+    offs = simplex_tables.corner_offsets(L)  # (64, 5) int32
+    coeffs = _WEIGHT_COEFFS                  # (64, 5, 5) int32
+    return offs, coeffs
+
+
+def _comparison_code(fa, fb, fc, fd):
+    """6-bit code from strict pairwise comparisons (bit layout of tables),
+    int64 (an index)."""
+    code = (fa > fb).to(torch.int64) * 32
+    code += (fa > fc).to(torch.int64) * 16
+    code += (fa > fd).to(torch.int64) * 8
+    code += (fb > fc).to(torch.int64) * 4
+    code += (fb > fd).to(torch.int64) * 2
+    code += (fc > fd).to(torch.int64)
+    return code
+
+
+def _tap_planes(img, mode: str, h: int, w: int):
+    """The four sampled pixel planes (a, b, c, d), each (..., h, w)."""
+    return [img[..., dy: dy + h, dx: dx + w] for dy, dx in mode_taps(mode)]
+
+
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """Round with straight-through gradient (ref: sr/model.py:59-67); the
+    value is exactly torch.round(x)."""
+    return x + (torch.round(x) - x).detach()
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """`jnp.clip` with JAX's gradient: 1 inside, 1/2 on a bound, 0 outside
+    (`torch.clamp` passes all of it on a bound; LUT entries sit on +-127
+    and dark outputs on 0, so the difference shows)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def div_add(x: torch.Tensor, n: int, bias: float) -> torch.Tensor:
+    """`x / n + bias` as XLA computes it under jit: one fused multiply-add
+    fma(x, float32(1/n), bias), rounded once to float32 (exact on the
+    integer-valued accumulators it takes; a true division rounds ties of
+    a later round() the other way).  The gradient is the plain
+    expression's, `float32(1/n)` per unit, as XLA's rewritten `g / n`."""
+    c = float(np.float32(1.0 / n))
+    plain = x * c + bias
+    exact = (x.to(torch.float64) * c + bias).to(x.dtype)
+    return plain + (exact - plain).detach()
+
+
+def simplex_planes_diff(w127, planes, *, interval: int = 4):
+    """Differentiable simplex interpolation over four tap planes.
+
+    Args:
+      w127: (L**4, v) float32 LUT already re-quantized to int8 levels with
+        STE (round(weight*127) -> clamp(-127, 127)); gradients flow into it
+        through the 5 corner gathers and into the planes through the
+        fractional weights.
+      planes: four (..., h, w) float32 tensors in [0, 255].
+
+    Returns:
+      (..., h, w, v) float32 (already divided by q), lanes not interleaved.
+    """
+    q = 2 ** interval
+    L = 2 ** (8 - interval) + 1
+
+    msb = [torch.floor(p / q).to(torch.int64) for p in planes]
+    fa, fb, fc, fd = (p % q for p in planes)
+
+    base = ((msb[0] * L + msb[1]) * L + msb[2]) * L + msb[3]
+    code = _comparison_code(fa.detach(), fb.detach(), fc.detach(),
+                            fd.detach())
+    offs_t, _ = _tables(L)
+    offs = torch.as_tensor(offs_t, device=base.device).to(torch.int64)[code]
+
+    # Sorted-fraction weights; each weight's gradient flows to the
+    # fraction it came from (ref: sr/model.py:199-282).
+    s0, s1, s2, s3 = _sorted_fractions(fa, fb, fc, fd)
+    weights = (q - s0, s0 - s1, s1 - s2, s2 - s3, s3)
+
+    v = w127.shape[1]
+    out = None
+    for k in range(5):
+        idx = base + offs[..., k]
+        rows = w127.index_select(0, idx.reshape(-1)).reshape(*idx.shape, v)
+        term = weights[k][..., None] * rows
+        out = term if out is None else out + term
+    return out / q
+
+
+def _shift_fwd(x, axis):
+    """(S x) along a digit axis: out[i] = x[min(i+1, L-1)]."""
+    L = x.shape[axis]
+    return torch.cat([x.narrow(axis, 1, L - 1), x.narrow(axis, L - 1, 1)],
+                     dim=axis)
+
+
+def _shiftT(x, axis):
+    """(S^T x) along a digit axis: out[j] = x[j-1] (+ x[L-1] at j = L-1)."""
+    L = x.shape[axis]
+    zero = torch.zeros_like(x.narrow(axis, 0, 1))
+    last = x.narrow(axis, L - 2, 1) + x.narrow(axis, L - 1, 1)
+    return torch.cat([zero, x.narrow(axis, 0, L - 2), last], dim=axis)
+
+
+class _ExpandWeight(torch.autograd.Function):
+    """Differentiable corner expansion: (L**4, v) -> (L**4, 16*v).
+
+    Corner mask m's rows are `w[min(digits + bits(m), L-1)]`, i.e.
+    (S (x) S (x) S (x) S) w with the per-digit shift matrix
+    S[i, j] = [j == min(i+1, L-1)] applied on m's bit dims.  The forward
+    builds all 16 corners in 4 doubling steps (one shifted copy per digit
+    dim); the backward folds the 4 bit axes with the transposed shift
+    (shift-down + accumulate-into-the-last-bin), innermost bit first, as
+    the JAX package's custom VJP does (`_expand_weight_bwd`).  Slices and
+    adds only: autograd's backward of the 16-corner gather would be a
+    scatter-add into every row, which dominated the fine-tune step on the
+    TPU (the JAX docstring's measurement).
+    """
+
+    @staticmethod
+    def forward(ctx, w127, interval):
+        L = 2 ** (8 - interval) + 1
+        L4, v = w127.shape
+        ctx.dims = (L, L4, v)
+        x = w127.reshape(L, L, L, L, v)
+        for d in range(4):
+            # insert bit axis for digit d after the existing bit axes
+            x = torch.stack([x, _shift_fwd(x, d)], dim=4 + d)
+        return x.reshape(L4, 16 * v)
+
+    @staticmethod
+    def backward(ctx, de):
+        L, L4, v = ctx.dims
+        g = de.reshape(L, L, L, L, 2, 2, 2, 2, v)
+        for d in (3, 2, 1, 0):  # fold innermost bit axis first
+            bit_axis = 4 + d
+            g = g.select(bit_axis, 0) + _shiftT(g.select(bit_axis, 1), d)
+        return g.reshape(L4, v), None
+
+
+def expand_weight(w127: torch.Tensor, *, interval: int = 4) -> torch.Tensor:
+    """Differentiable corner expansion (L**4, v) -> (L**4, 16*v); see
+    `_ExpandWeight` for the math and the custom backward."""
+    return _ExpandWeight.apply(w127, interval)
+
+
+def simplex_planes_expanded_diff(e127, planes, *, v: int, interval: int = 4):
+    """Differentiable single-gather simplex interpolation.
+
+    `e127` is the differentiably-expanded float table from `expand_weight`,
+    so the five corner gathers and their five backward scatters collapse
+    into one wide row gather per tapset.  Forward values equal
+    `simplex_planes_diff`'s (all addends are integer-valued floats below
+    2**24, so float32 summation order is irrelevant).
+
+    Args:
+      e127: (L**4, 16 * v) float32 expanded table.
+      planes: four (..., h, w) float32 tap planes in [0, 255].
+
+    Returns:
+      (..., h, w, v) float32 (already divided by q), lanes not interleaved.
+    """
+    q = 2 ** interval
+    L = 2 ** (8 - interval) + 1
+
+    lead = planes[0].shape
+    flat = [p.reshape(-1) for p in planes]
+    fa, fb, fc, fd = (p % q for p in flat)
+    msb = [torch.floor(p / q).to(torch.int64) for p in flat]
+    base = ((msb[0] * L + msb[1]) * L + msb[2]) * L + msb[3]
+
+    s0, s1, s2, s3 = _sorted_fractions(fa, fb, fc, fd)
+    w = (q - s0, s0 - s1, s1 - s2, s2 - s3, s3)
+    ranks = _fraction_ranks(fa.detach(), fb.detach(), fc.detach(),
+                            fd.detach())
+    lt = {x: [None] + [(r < k) for k in (1, 2, 3)] + [None]
+          for x, r in zip("abcd", ranks)}
+
+    g = e127.index_select(0, base).reshape(-1, 16, v)
+
+    lams = []
+    for m in range(16):
+        bits = _CORNER_BITS[m]
+        k = int(bits.sum())
+        used = None
+        for x, bit in zip("abcd", bits):
+            if k in (0, 4):
+                continue
+            cond = lt[x][k] if bit else ~lt[x][k]
+            used = cond if used is None else used & cond
+        lams.append(w[k] if used is None else torch.where(used, w[k], 0.0))
+    lam = torch.stack(lams, dim=-1)                       # (N, 16) f32
+    out = torch.einsum("nm,nmv->nv", lam, g) / q
+    return out.reshape(*lead, v)
+
+
+def simplex_interp_diff(weight, img, *, mode: str, upscale: int,
+                        interval: int = 4):
+    """Differentiable simplex interpolation for STE LUT fine-tuning.
+
+    Args:
+      weight: (L**4, upscale**2) float32 trainable LUT (values ~ [-1, 1]).
+      img: (..., h + pad, w + pad) float32, values in [0, 255], already
+        replicate-padded on the bottom/right by `mode_pad(mode)`.
+
+    Returns:
+      (..., h*upscale, w*upscale) float32, the torch fine-tune path (ref:
+      sr/model.py:69-287) including the weight re-quantization
+      round(weight*127) -> clamp(-127, 127) with straight-through gradients.
+    """
+    pad = mode_pad(mode)
+    h = img.shape[-2] - pad
+    w = img.shape[-1] - pad
+    w127 = clip(round_ste(weight * 127.0), -127.0, 127.0)
+    planes = _tap_planes(img, mode, h, w)
+    out = simplex_planes_diff(w127, planes, interval=interval)
+    return _interleave(out, upscale)

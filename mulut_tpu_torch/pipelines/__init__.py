@@ -1,1 +1,2 @@
-"""Evaluation entry points."""
+"""Entry points: evaluation (step 4), training, LUT transfer and LUT
+fine-tuning (steps 1-3)."""

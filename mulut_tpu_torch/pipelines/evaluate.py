@@ -41,18 +41,9 @@ from ..ops.tail_kernel import (
     supports_tail_kernel,
     unpack_u32,
 )
+from ..utils.device import resolve_device
 from ..utils.lut_io import load_luts
 from ..utils.metrics import _YCBCR_O, _YCBCR_T
-
-
-def _resolve_device(device, who: str = "LutEvaluator") -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            f"no CUDA device: {who} runs on the card; pass "
-            "device='cpu' for the plain torch path on the host")
-    return torch.device("cuda")
 
 
 class LutEvaluator:
@@ -89,7 +80,7 @@ class LutEvaluator:
         self.interval = interval
         self.bucket = bucket
         self.max_batch_pixels = max_batch_pixels or self.MAX_BATCH_PIXELS
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "LutEvaluator")
         # built on the device from the ~4 MB of source LUTs
         self.luts = prepare_expanded_luts(luts, interval=interval,
                                           device=self.device)
@@ -256,7 +247,7 @@ class NetEvaluator:
         self.modes = modes
         self.scale = scale
         self.fast = fast = bool(fast or quant)
-        self.device = _resolve_device(device, "NetEvaluator")
+        self.device = resolve_device(device, "NetEvaluator")
         self.params = params_from_numpy(params, self.device)
         self.stacked = None
         if quant:

@@ -1,1 +1,1 @@
-"""LUT artifact IO."""
+"""LUT artifact IO, image IO, metrics and logging."""

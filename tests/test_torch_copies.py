@@ -4,12 +4,21 @@ import hygiene.
 `mulut_tpu_torch` keeps its own copies of `ops/taps.py`, the NumPy table
 builders of `ops/simplex_tables.py`, `utils/lut_io.py`, the resize weight
 builders of `ops/resize.py`, `window_offsets` of `ops/unit_kernel.py`, the
-YCbCr constants of `utils/metrics.py` and the NumPy calibration and
-fixed-point code of `ops/quant.py` (importing them from `mulut_tpu` would
-load JAX).  Tolerance: exact equality throughout — these are integer
-tables, permutations, constants and the same NumPy arithmetic.
+YCbCr constants and metrics of `utils/metrics.py`, the NumPy calibration
+and fixed-point code of `ops/quant.py`, and, for the training half,
+`lut_grid` of `pipelines/transfer.py`, the decision tables and comparison
+code of `ops/simplex.py`, the synthetic images of `data/synthetic.py`
+and `cosine_lr` of `pipelines/train.py` (importing them from
+`mulut_tpu` would load JAX).  Tolerance: exact equality throughout —
+these are integer tables, permutations, constants and the same NumPy
+arithmetic — except `cosine_lr`, which the port evaluates in float64 on
+the host and JAX in float32 on the device (XLA rounds the cosine's
+argument to float32): within relative 1e-6 at every step (measured
+5.7e-7 at total 1,000).  Importing the port loads neither JAX
+nor PIL (the card's machine has no PIL).
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -24,8 +33,12 @@ from mulut_tpu.ops import resize as jresize
 from mulut_tpu.ops import simplex_tables as jst
 from mulut_tpu.ops import taps as jtaps
 from mulut_tpu.ops import unit_kernel as juk
+from mulut_tpu.data import synthetic as jsyn
+from mulut_tpu.ops import simplex as jsx
 from mulut_tpu.utils import lut_io as jio
 from mulut_tpu.utils import metrics as jmetrics
+from mulut_tpu_torch.data import synthetic as tsyn
+from mulut_tpu_torch.ops import simplex as tsx
 from mulut_tpu_torch.ops import quant as tquant
 from mulut_tpu_torch.ops import resize as tresize
 from mulut_tpu_torch.ops import simplex_tables as tst
@@ -33,6 +46,11 @@ from mulut_tpu_torch.ops import taps as ttaps
 from mulut_tpu_torch.ops import unit_kernel as tuk
 from mulut_tpu_torch.utils import lut_io as tio
 from mulut_tpu_torch.utils import metrics as tmetrics
+
+jtransfer = importlib.import_module("mulut_tpu.pipelines.transfer")
+jtrain = importlib.import_module("mulut_tpu.pipelines.train")
+ttransfer = importlib.import_module("mulut_tpu_torch.pipelines.transfer")
+ttrain = importlib.import_module("mulut_tpu_torch.pipelines.train")
 
 REPO = Path(__file__).resolve().parents[1]
 MODES = "sdyeho"
@@ -154,6 +172,85 @@ def test_quant_calibration_and_fixed_point_equal(nf):
                     jquant._fixed_point(hcq, hbq, nf)):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("interval", [3, 4, 6])
+def test_lut_grid_equal(interval):
+    got, want = ttransfer.lut_grid(interval), jtransfer.lut_grid(interval)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_simplex_tables_and_codes_equal():
+    for L in (3, 9, 17):
+        for g, w in zip(tsx._tables(L), jsx._tables(L)):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    f = np.random.default_rng(2).integers(0, 16, (4, 500))
+    import torch
+
+    got = tsx._comparison_code(*(torch.as_tensor(x) for x in f)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jsx._comparison_code(*f)))
+
+
+@pytest.mark.parametrize("size,scale", [(32, 4), (48, 3)])
+def test_synthetic_images_equal(size, scale):
+    got = tsyn._synth_image(np.random.default_rng(size), size)
+    want = jsyn._synth_image(np.random.default_rng(size), size)
+    assert got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tsyn._bicubic_down(got, scale),
+                                  jsyn._bicubic_down(want, scale))
+
+
+def test_metrics_functions_equal():
+    rng = np.random.default_rng(8)
+    a = rng.integers(0, 256, (19, 23, 3)).astype(np.uint8)
+    b = rng.integers(0, 256, (19, 23, 3)).astype(np.uint8)
+    np.testing.assert_array_equal(tmetrics.rgb2ycbcr(a),
+                                  jmetrics.rgb2ycbcr(a))
+    np.testing.assert_array_equal(tmetrics._gaussian_window(),
+                                  jmetrics._gaussian_window())
+    np.testing.assert_array_equal(tmetrics.modcrop(a, 4),
+                                  jmetrics.modcrop(a, 4))
+    ya, yb = a[..., 0], b[..., 0]
+    assert tmetrics.psnr(ya, yb, 2) == jmetrics.psnr(ya, yb, 2)
+    assert tmetrics.ssim(ya, yb) == jmetrics.ssim(ya, yb)
+    assert tmetrics.psnr_ssim_y(a, b, 4) == jmetrics.psnr_ssim_y(a, b, 4)
+
+
+@pytest.mark.parametrize("lr1", [1e-4, -1.0])
+def test_cosine_lr_values(lr1):
+    import jax
+
+    total = 1000
+    want_fn = jax.jit(jtrain.cosine_lr(1e-3, lr1, total))
+    got_fn = ttrain.cosine_lr(1e-3, lr1, total)
+    for k in range(0, total + 1, 7):
+        want = float(want_fn(np.int32(k)))
+        got = float(np.float32(got_fn(k)))
+        assert abs(got - want) <= 1e-6 * want, (k, got, want)
+
+
+def test_import_loads_no_pil():
+    """Importing every module of the port leaves PIL out of sys.modules:
+    image IO imports it inside its functions."""
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "mulut_tpu_torch").rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print([m for m in sys.modules if m == 'PIL' or "
+        "m.startswith('PIL.')])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip() == "[]"
 
 
 def test_import_loads_no_jax():
