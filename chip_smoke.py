@@ -157,8 +157,26 @@ transfer and fine-tune run as PyTorch ops on the card):
      beside phase 6's random-table times, on the batch and on 8
      structured frames (`_synth_image`).
 
+Then plain net mode at nf=256 (`_plain_nf256`; the plain kernels' nf=256
+instances, their hidden layers streamed through a ring of shared-memory
+slots):
+
+ 14. the nf=256 weights (`NET_WEIGHTS_NF256`, depth 2) through
+     `NetEvaluator.from_checkpoint(..., fast=True)` on the same batch:
+     every plain entry at ragged site counts as in phase 12; every K3 call
+     of `upscale_batch` and `upscale_yuv_batch` against its plain version
+     (raw accumulator at ACC_FRAC_NF256, its own epilogue at the nf=128
+     gates); both entry points counted (2 K3 launches each, none of
+     another); the 135 x 240 crop card vs CPU path, RGB and YUV; timings
+     per call site (ms, bound, plain version, cuBLAS chain yardstick) with
+     the launch geometry (grid, warpgroups, ring slots and fills, shared
+     memory, bytes staged), `srnets_predict_fast` device ms and
+     `upscale_batch` host ms; then the K6, K8 "mxu" and K8 "vpu" routes as
+     in phase 12 (the crop for "vpu" only: the others must give the K3
+     route's bytes).
+
 Prints a `{"kernels": [...]}` line (K1 in both forms, K2-K11; K8 with the
-float32 head) and
+float32 head; K3, K6 and K8 at nf=256 under names ending in "_nf256") and
 ends with one `{"ok": true, "device": {...}}` line.  Any failed phase
 raises.
 
@@ -177,9 +195,11 @@ prints each kernel instance's SASS instruction count by opcode
 (`cuobjdump`; default source plain_w8a8).
 
     python3 chip_smoke.py --training
+    python3 chip_smoke.py --nf256
 
-builds the kernels and runs phase 13 alone (its deploy timings without
-phase 6's beside them); readings and gates as in the full run.
+build the kernels and run phase 13 (its deploy timings without phase 6's
+beside them) or phase 14 (with ptxas's report of the plain sources)
+alone; readings and gates as in the full run.
 """
 
 from __future__ import annotations
@@ -223,11 +243,15 @@ SOURCE_K8 = "mulut_tpu_torch/ops/csrc/plain_site.cu"
 DENSE_GROUPS, DENSE_TILE, DENSE_BLOCK_SITES = 3, 64, 768
 DENSE_NF, DENSE_LANES, DENSE_MAX_MODES = 64, 16, 6
 #: csrc/plain_body.cuh's launch geometry (the same warpgroups, tile and
-#: block as the dense body), its nf and the most hidden layers its shared
-#: memory takes (kMaxDepth).  tests/test_torch_plain_wgmma.py checks them
-#: against the source.
+#: block as the dense body); by nf, the slots of the ring its hidden layers
+#: stream through (0: every layer staged at once; kWideSlots at nf=256, of
+#: PLAIN_SLOT_BYTES each); the most hidden layers it takes (kMaxDepth).
+#: tests/test_torch_plain_wgmma.py and test_torch_plain_nf256_layout.py
+#: check them against the source.
 PLAIN_GROUPS, PLAIN_TILE, PLAIN_BLOCK_SITES = 3, 64, 768
-PLAIN_NF, PLAIN_MAX_DEPTH = 128, 4
+PLAIN_RING_SLOTS = {128: 0, 256: 5}
+PLAIN_NFS = tuple(PLAIN_RING_SLOTS)
+PLAIN_SLOT_BYTES, PLAIN_MAX_DEPTH = 16384, 4
 #: the depth-3 plain weights, for the depth-3 shared-memory layout
 NET_WEIGHTS_D3 = "artifacts/mxu_distilled_x4sdy_nf128_d3_ftr2.npz"
 #: csrc/plain_w8a8.cu's launch geometry (K11: warpgroups per block by nf,
@@ -274,6 +298,17 @@ U8_EQUAL, U8_NEAR, U8_ABS = 0.999, 0.9999, 8
 #: and holds these values to it), rounded to the tighter side; the other
 #: gates stay as they are.
 ACC_FRAC_D3, U8_EQUAL_D3 = 1.5e-3, 0.998
+#: The nf=256 plain weights (NET_WEIGHTS_NF256, phase 14) flip more ties
+#: too: each pass rounds twice the activations, each a sum of twice the
+#: products.  Their raw share gate is the nf=128 one scaled by how much
+#: more often a float32 sum in another order flips a tie at nf=256 than at
+#: nf=128: the port's plain version against the same arithmetic with
+#: float64 sums, stage 2 of this script's crop on the CPU, 7.99e-4 of the
+#: entries at nf=256 against 5.03e-4 at nf=128, x1.588 (the port against
+#: JAX departs only x1.477 more: both sum in float32 FMAs);
+#: tests/test_torch_net_nf256.py measures both and holds this value to the
+#: first, rounded to the tighter side.  The other gates stay as they are.
+ACC_FRAC_NF256 = 1.5e-3
 CROP_H, CROP_W = 135, 240
 #: Phase 13 (the training half): the reference training config (TrainOptions
 #: defaults: dense units, nf=64, batch 32 of 48 x 48 LR crops), steps of
@@ -495,38 +530,71 @@ def plain_grid(n: int) -> int:
     return -(-n // PLAIN_BLOCK_SITES)
 
 
-def plain_smem_bytes(depth: int) -> int:
-    """Dynamic shared memory of a plain launch: the output head (64 rows
-    x nf bf16), the raw accumulators (16 float per site of the block), the
-    vectors (b1, b6 and PLAIN_MAX_DEPTH hidden biases as float, 4 nf words
-    for the head's w1, the plane offsets) rounded up to 1 KB, then `depth`
-    nf x nf bf16 layers and 1 KB to align the base."""
-    nf = PLAIN_NF
+def plain_smem_bytes(depth: int, nf: int = 128) -> int:
+    """Dynamic shared memory of a plain launch.  nf=128: the output head
+    (64 rows x nf bf16), the raw accumulators (16 float per site of the
+    block), the vectors (b1, b6 and PLAIN_MAX_DEPTH hidden biases as float,
+    4 nf words for the head's w1, the plane offsets) rounded up to 1 KB,
+    then `depth` nf x nf bf16 layers and 1 KB to align the base.  nf=256:
+    the output head, the raw accumulators as int16, the stash (three
+    quarters of a layer's packed outputs, 24 KB per warpgroup), the
+    vectors and the ring's barriers and release counts (12 B a slot)
+    rounded up to 1 KB, then the ring and 1 KB; the same at any depth."""
     vec = 4 * (nf + 64 + PLAIN_MAX_DEPTH * nf + 4 * nf
                + DENSE_MAX_MODES * 16)
-    fixed = 64 * nf * 2 + PLAIN_BLOCK_SITES * 16 * 4 + vec
-    return -(-fixed // 1024) * 1024 + depth * nf * nf * 2 + 1024
+    slots = PLAIN_RING_SLOTS[nf]
+    if not slots:
+        fixed = 64 * nf * 2 + PLAIN_BLOCK_SITES * 16 * 4 + vec
+        return -(-fixed // 1024) * 1024 + depth * nf * nf * 2 + 1024
+    fixed = (64 * nf * 2 + PLAIN_BLOCK_SITES * 16 * 2
+             + PLAIN_GROUPS * 12 * 128 * 16 + vec + 12 * slots)
+    return -(-fixed // 1024) * 1024 + slots * PLAIN_SLOT_BYTES + 1024
 
 
-def plain_staged_bytes(n: int, *, modes: int, depth: int, head: str) -> int:
+def plain_ring_fills(n: int, *, modes: int, depth: int) -> int:
+    """Ring fills (PLAIN_SLOT_BYTES each) of a plain launch at nf=256 over
+    n sites: a block runs ceil(live tiles / PLAIN_GROUPS) tile rounds per
+    mode, and each round's 4 passes read each layer's 8 fills (4 quarters
+    of its outputs by 2 halves of its inputs)."""
+    full, rest = divmod(n, PLAIN_BLOCK_SITES)
+
+    def rounds(sites):
+        return -(-(-(-sites // PLAIN_TILE)) // PLAIN_GROUPS)
+
+    r = full * rounds(PLAIN_BLOCK_SITES) + (rounds(rest) if rest else 0)
+    return r * modes * 4 * 8 * depth
+
+
+def plain_staged_bytes(n: int, *, modes: int, depth: int, head: str,
+                       nf: int = 128) -> int:
     """Shared-memory bytes one plain launch stages: per block and mode the
-    bf16 hidden layers and output head, the float hidden biases and b6,
-    and the head's weights: for the float32 head ("mxu") w1 and b1 as
-    float, for the bf16 head ("vpu") w1 and b1 as bf16 pairs."""
-    nf = PLAIN_NF
-    per_mode = 2 * (depth * nf * nf + 64 * nf) + 4 * (depth * nf + 64)
-    per_mode += 4 * 5 * nf if head == "mxu" else 2 * 5 * nf
-    return plain_grid(n) * modes * per_mode
+    bf16 output head, the float hidden biases and b6, and the head's
+    weights (w1 and b1 as bf16 pairs; at nf=128 as float for the float32
+    head, "mxu"); the hidden layers per block and mode at nf=128, through
+    the ring's fills at nf=256."""
+    per_mode = 2 * 64 * nf + 4 * (depth * nf + 64)
+    per_mode += 4 * 5 * nf if head == "mxu" and nf == 128 else 2 * 5 * nf
+    if not PLAIN_RING_SLOTS[nf]:
+        per_mode += 2 * depth * nf * nf
+        return plain_grid(n) * modes * per_mode
+    return (plain_grid(n) * modes * per_mode
+            + plain_ring_fills(n, modes=modes, depth=depth) * PLAIN_SLOT_BYTES)
 
 
-def _plain_geometry(n, *, modes, depth, head):
+def _plain_geometry(n, *, modes, depth, head, nf=128):
     """One plain call's launch geometry: grid, site tile, dynamic shared
-    memory and the weight bytes staged into it per call."""
-    staged = plain_staged_bytes(n, modes=modes, depth=depth, head=head)
-    return (f"grid={plain_grid(n)} x {128 * PLAIN_GROUPS} threads, site "
-            f"tile {PLAIN_TILE} per warpgroup ({PLAIN_BLOCK_SITES} sites per "
-            f"block), dynamic smem {plain_smem_bytes(depth)} B, "
-            f"staged_bytes={staged}")
+    memory, the ring at nf=256, and the weight bytes staged into shared
+    memory per call."""
+    staged = plain_staged_bytes(n, modes=modes, depth=depth, head=head,
+                                nf=nf)
+    slots = PLAIN_RING_SLOTS[nf]
+    ring = (f", ring of {slots} x {PLAIN_SLOT_BYTES} B slots, "
+            f"{plain_ring_fills(n, modes=modes, depth=depth)} fills"
+            if slots else "")
+    return (f"grid={plain_grid(n)} x {128 * PLAIN_GROUPS} threads "
+            f"({PLAIN_GROUPS} warpgroups), site tile {PLAIN_TILE} per "
+            f"warpgroup ({PLAIN_BLOCK_SITES} sites per block), dynamic smem "
+            f"{plain_smem_bytes(depth, nf)} B{ring}, staged_bytes={staged}")
 
 
 def w8a8_grid(n: int) -> int:
@@ -1510,7 +1578,7 @@ def _plain_flags(sn, uk, window, layout, head):
         sn.PLAIN_WINDOW, sn.PLAIN_LAYOUT, uk.PLAIN_HEAD = old
 
 
-def _plain_ragged(torch, uk, stacks):
+def _plain_ragged(torch, uk, stacks, frac=ACC_FRAC, tag=""):
     """Each plain entry (K3, K6, K8 with the float32 and with the bf16
     head) on both stages' `_ftr2` stacks at ragged site counts, which the
     batch never reaches.  At n = 1,000,003: against its plain version (the
@@ -1521,7 +1589,8 @@ def _plain_ragged(torch, uk, stacks):
     to the same sites of a launch whose ragged edge lies elsewhere (K3:
     its plane zero-extended past the last tap; K6, K8: the first n sites
     of the n = 1,000,003 launch), with the reading against the plain
-    version printed, not gated (ROADMAP Queue C)."""
+    version printed, not gated (ROADMAP Queue C).  `frac`: the raw
+    accumulators' share gate at n = 1,000,003; `tag` heads each line."""
     g = torch.Generator(device="cuda").manual_seed(8)
     M, T, N = len(MODES), PLAIN_BLOCK_SITES, 1_000_003
     P, _ = uk.window_offsets(MODES)
@@ -1545,29 +1614,32 @@ def _plain_ragged(torch, uk, stacks):
                 want = uk.stage_ensemble_apply_w_plain(st, plane, mix=kind,
                                                        **kw)
                 torch.cuda.synchronize()
-                _gate(f"ragged K3 n={N} s{s + 1} "
+                _gate(f"{tag}ragged K3 n={N} s{s + 1} "
                       f"{'raw acc' if kind is None else kind} vs plain",
                       _differ(torch, got, want, kind),
-                      RAW_ABS if kind is None else MIX_ABS)
+                      RAW_ABS if kind is None else MIX_ABS,
+                      max_frac=frac if kind is None else ACC_FRAC)
                 if kind is None:
                     k3 = got
             k6 = uk.stage_ensemble_apply_t(st, tt, n_modes=M, v=v)
             want = uk.stage_ensemble_apply_t_plain(st, tt, n_modes=M)
             torch.cuda.synchronize()
-            _gate(f"ragged K6 n={N} s{s + 1} raw acc vs plain",
-                  _differ(torch, k6, want), RAW_ABS)
-            _same(f"K6 n={N} s{s + 1} raw acc vs K3", k6, k3)
+            _gate(f"{tag}ragged K6 n={N} s{s + 1} raw acc vs plain",
+                  _differ(torch, k6, want), RAW_ABS, max_frac=frac)
+            _same(f"{tag}K6 n={N} s{s + 1} raw acc vs K3", k6, k3)
             k8 = {}
             for head in uk.HEADS:
                 uk.PLAIN_HEAD = head
                 k8[head] = uk.stage_ensemble_apply(st, taps, n_modes=M, v=v)
                 want = uk.stage_ensemble_apply_plain(st, taps, n_modes=M)
                 torch.cuda.synchronize()
-                _gate(f"ragged K8 {head} n={N} s{s + 1} raw acc vs plain",
-                      _differ(torch, k8[head], want), RAW_ABS)
-            _same(f"K8 mxu n={N} s{s + 1} raw acc vs K3", k8["mxu"].T, k3)
+                _gate(f"{tag}ragged K8 {head} n={N} s{s + 1} raw acc vs "
+                      "plain", _differ(torch, k8[head], want), RAW_ABS,
+                      max_frac=frac)
+            _same(f"{tag}K8 mxu n={N} s{s + 1} raw acc vs K3", k8["mxu"].T,
+                  k3)
             for n in sizes:
-                what = f"n={n} s{s + 1}"
+                what = f"{tag}n={n} s{s + 1}"
                 tn, ttn, pn = (taps[:n].contiguous(), tt[:, :n].contiguous(),
                                plane[:n].contiguous())
                 ext = torch.cat([pn, torch.zeros(
@@ -1637,6 +1709,159 @@ def _plain_depth3(torch, uk, imgs):
                  crop), equal=U8_EQUAL_D3)
 
 
+def _plain_route(torch, tk, imgs, params, route, ref, dev3_ms, chain, *,
+                 frac=ACC_FRAC, crops=True, plain_reps=2, tag=""):
+    """One route of PLAIN_ROUTES on `params` (phases 12 and 14), under its
+    flags: `NetEvaluator(fast=True)`; every kernel call of `upscale_batch`
+    and `upscale_yuv_batch` against its plain version (raw accumulator at
+    share gate `frac`, and its own epilogue), and for the float32 head its
+    raw accumulator against K3's on the same stage input, over the image
+    sites (no entry may differ: one pass body); both entry points with every
+    launch counter set to 0 just before and read just after (2 launches of
+    the route's kernel each, none of another), for the float32 head their
+    bytes equal to `ref` (the K3 route's); with `crops` the 135 x 240 crop
+    card vs CPU path; timings per call site (ms, bound, plain version over
+    `plain_reps`, cuBLAS chain yardstick, cached in `chain`) with the
+    launch geometry, the route's `srnets_predict_fast` device ms beside
+    the K3 route's `dev3_ms`, `upscale_batch` host ms.  Returns (per-batch
+    ms totals of the RGB call sites, max |diff| against plain, the
+    launches of `upscale_batch`)."""
+    from mulut_tpu_torch.models import srnet as sn
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
+
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    counters = (tk.LAUNCHES, uk.LAUNCHES)
+    crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
+    mpix = BATCH * H * SCALE * W * SCALE / 1e6
+    P, _ = uk.window_offsets(MODES)
+    sites = ["rgb s1", "rgb s2", "yuv s1", "yuv s2"]
+    kn, key, wname, window, layout, head = route
+    kn = tag + kn
+    wrapper = getattr(uk, wname)
+    plain_fn = getattr(uk, wname + "_plain")
+    with _plain_flags(sn, uk, window, layout, head):
+        ev = NetEvaluator(params, fast=True, **cfg)
+        nf = ev.stacked[0]["hwt"].shape[2]
+
+        def both():
+            ev.upscale_batch(imgs)
+            ev.upscale_yuv_batch(imgs)
+
+        (calls,) = _record_calls(uk, (wname,), both)
+        if len(calls) != len(sites):
+            raise RuntimeError(f"{kn}: recorded {len(calls)} {wname} "
+                               f"calls; expected {len(sites)}")
+        err = 0.0
+        for site, ((st, src), kw) in zip(sites, calls):
+            for kind in (None, kw["mix"]):
+                kwm = dict(kw, mix=kind)
+                got = wrapper(st, src, **kwm)
+                want = plain_fn(st, src, **{
+                    k: v_ for k, v_ in kwm.items() if k != "v"})
+                torch.cuda.synchronize()
+                err = max(err, _gate(
+                    f"{kn} {site} {'raw acc' if kind is None else kind} "
+                    f"{tuple(got.shape)} vs plain",
+                    _differ(torch, got, want, kind),
+                    RAW_ABS if kind is None else MIX_ABS,
+                    max_frac=frac if kind is None else ACC_FRAC))
+                if kind is not None or head != "mxu":
+                    continue
+                # the raw accumulator against K3's on this stage's
+                # input, over the image sites: one pass body, so no
+                # entry may differ
+                img = (src[0] if wname.endswith("_t") else src[:, 0]).reshape(
+                    BATCH, -1, H, W)
+                plane, (Hp, Wp, _) = sn._window_plane(img, MODES)
+                k3 = uk.stage_ensemble_apply_w(st, plane, modes=MODES,
+                                               width=Wp, v=kw["v"])
+                k3 = k3.view(16, BATCH, -1, Hp, Wp)[
+                    ..., P: Hp - P, P: Wp - P].reshape(16, -1)
+                raw = got if wname.endswith("_t") else got.T
+                _gate(f"{kn} {site} raw acc vs K3 {tuple(k3.shape)}",
+                      (raw - k3).abs(), 0, max_frac=0)
+        # the main path through the entry points, counted
+        for fn, want in zip((ev.upscale_batch, ev.upscale_yuv_batch), ref):
+            _reset(*counters)
+            out = fn(imgs)
+            launches = dict(uk.LAUNCHES)
+            print(f"{kn} route {fn.__name__}: {imgs.shape} -> "
+                  f"{out.shape}, launches {launches} + LUT "
+                  f"{dict(tk.LAUNCHES)}")
+            if launches != _only(uk.LAUNCHES, key, 2) or any(
+                    tk.LAUNCHES.values()):
+                raise RuntimeError(f"{kn} route {fn.__name__} launches "
+                                   f"{launches}; expected 2 {key}")
+            if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or \
+                    out.dtype != np.uint8:
+                raise RuntimeError(f"bad output {out.shape} {out.dtype}")
+            if fn == ev.upscale_batch:
+                count = launches[key]
+            if head == "mxu":
+                n_diff = int((out != want).sum())
+                print(f"{kn} route {fn.__name__} vs the K3 route: "
+                      f"{n_diff} of {out.size} bytes differ")
+                if n_diff:
+                    raise RuntimeError(f"{kn} route bytes differ from K3's")
+        if crops:
+            t0 = time.perf_counter()
+            ev_cpu = NetEvaluator(params, fast=True, device="cpu", **cfg)
+            _u8_gate(f"{kn} route {CROP_H}x{CROP_W} crop, card vs CPU path",
+                     ev.upscale(crop), ev_cpu.upscale(crop))
+            _u8_gate(f"{kn} route {CROP_H}x{CROP_W} crop YUV, card vs CPU",
+                     ev.upscale_yuv(crop), ev_cpu.upscale_yuv(crop))
+            print(f"{kn} route CPU path: {time.perf_counter() - t0:.1f} s")
+            del ev_cpu
+        # timings
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ev.upscale_batch(imgs)
+        batch_ms = (time.perf_counter() - t0) * 1e3 / reps
+        x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2).float() / 255
+        dev_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
+            ev.stacked, x, **cfg), reps)
+        print(f"{kn} route upscale_batch (host clock, H2D + D2H "
+              f"included): {batch_ms:.3f} ms/batch = "
+              f"{mpix / batch_ms * 1e3:.2f} MPix/s")
+        print(f"{kn} route srnets_predict_fast on the card (CUDA "
+              f"events): {dev_ms:.3f} ms/batch = "
+              f"{mpix / dev_ms * 1e3:.2f} MPix/s (K3 route "
+              f"{dev3_ms:.3f})")
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for site, ((st, src), kw) in zip(sites, calls):
+            n = src.shape[1] if wname.endswith("_t") else src.shape[0]
+            D, M, nf, _ = st["hwt"].shape
+            flops, nbytes = _plain_work(st, n, src.numel() * 2, kw["v"],
+                                        kw["mix"])
+            if (n, kw["v"], nf) not in chain:
+                chain[n, kw["v"], nf] = _chain_ms(torch, n, M, nf, kw["v"],
+                                                  False, D)
+            pkw = {k: v_ for k, v_ in kw.items() if k != "v"}
+            t = {
+                "ms": _cuda_ms(torch, lambda: wrapper(st, src, **kw), 10),
+                "plain_ms": _cuda_ms(torch, lambda: plain_fn(
+                    st, src, **pkw), plain_reps),
+                "bound_ms": max(flops / BF16_FLOPS_PER_MS,
+                                nbytes / HBM_BYTES_PER_MS),
+                "cublas_chain_ms": chain[n, kw["v"], nf],
+            }
+            print(f"{kn} {site} {kw['mix']}: image sites={n} "
+                  f"flops={flops:.4e} bytes={nbytes} "
+                  + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
+            print(f"{kn} {site} geometry: " + _plain_geometry(
+                n, modes=M, depth=D, head=head, nf=nf))
+            if site.startswith("rgb"):
+                for k in tot:
+                    tot[k] += t[k]
+        print(f"{kn} per batch (rgb s1 + s2): "
+              + " ".join(f"{k}={v_:.4f}" for k, v_ in tot.items()))
+        del ev, calls, x
+        torch.cuda.empty_cache()
+    return tot, err, count
+
+
 def _plain_routes(torch, tk, imgs):
     """Phase 12; returns the K6 and K8 entries of the kernels line."""
     from mulut_tpu_torch.models import srnet as sn
@@ -1646,13 +1871,9 @@ def _plain_routes(torch, tk, imgs):
     from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
 
     cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
-    counters = (tk.LAUNCHES, uk.LAUNCHES)
-    crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
-    mpix = BATCH * H * SCALE * W * SCALE / 1e6
     # a stage's input is its tap source's first tap (mode 0, rotation 0)
     if rotated_taps(MODES[0], 0)[0] != (0, 0):
         raise RuntimeError("tap 0 of the first mode is not the site itself")
-    P, _ = uk.window_offsets(MODES)
     params = load_params_npz(NET_WEIGHTS)
     x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2).float() / 255
     chain = {}
@@ -1666,142 +1887,230 @@ def _plain_routes(torch, tk, imgs):
         ev3.stacked, x, **cfg), 5)
     print(f"plain K3 route srnets_predict_fast on the card (CUDA events): "
           f"{dev3_ms:.3f} ms/batch")
-    sites = ["rgb s1", "rgb s2", "yuv s1", "yuv s2"]
-    tots, errs, counts = {}, {}, {}
-    for kn, key, wname, window, layout, head in PLAIN_ROUTES:
-        wrapper = getattr(uk, wname)
-        plain_fn = getattr(uk, wname + "_plain")
-        with _plain_flags(sn, uk, window, layout, head):
-            ev = NetEvaluator(params, fast=True, **cfg)
-
-            def both():
-                ev.upscale_batch(imgs)
-                ev.upscale_yuv_batch(imgs)
-
-            (calls,) = _record_calls(uk, (wname,), both)
-            if len(calls) != len(sites):
-                raise RuntimeError(f"{kn}: recorded {len(calls)} {wname} "
-                                   f"calls; expected {len(sites)}")
-            err = 0.0
-            for site, ((st, src), kw) in zip(sites, calls):
-                for kind in (None, kw["mix"]):
-                    kwm = dict(kw, mix=kind)
-                    got = wrapper(st, src, **kwm)
-                    want = plain_fn(st, src, **{
-                        k: v_ for k, v_ in kwm.items() if k != "v"})
-                    torch.cuda.synchronize()
-                    err = max(err, _gate(
-                        f"{kn} {site} {'raw acc' if kind is None else kind} "
-                        f"{tuple(got.shape)} vs plain",
-                        _differ(torch, got, want, kind),
-                        RAW_ABS if kind is None else MIX_ABS))
-                    if kind is not None or head != "mxu":
-                        continue
-                    # the raw accumulator against K3's on this stage's
-                    # input, over the image sites: one pass body, so no
-                    # entry may differ
-                    img = (src[0] if kn == "K6" else src[:, 0]).reshape(
-                        BATCH, -1, H, W)
-                    plane, (Hp, Wp, _) = sn._window_plane(img, MODES)
-                    k3 = uk.stage_ensemble_apply_w(st, plane, modes=MODES,
-                                                   width=Wp, v=kw["v"])
-                    k3 = k3.view(16, BATCH, -1, Hp, Wp)[
-                        ..., P: Hp - P, P: Wp - P].reshape(16, -1)
-                    raw = got if kn == "K6" else got.T
-                    _gate(f"{kn} {site} raw acc vs K3 {tuple(k3.shape)}",
-                          (raw - k3).abs(), 0, max_frac=0)
-            # the main path through the entry points, counted
-            for fn, want in zip((ev.upscale_batch, ev.upscale_yuv_batch),
-                                ref):
-                _reset(*counters)
-                out = fn(imgs)
-                launches = dict(uk.LAUNCHES)
-                print(f"{kn} route {fn.__name__}: {imgs.shape} -> "
-                      f"{out.shape}, launches {launches} + LUT "
-                      f"{dict(tk.LAUNCHES)}")
-                if launches != _only(uk.LAUNCHES, key, 2) or any(
-                        tk.LAUNCHES.values()):
-                    raise RuntimeError(f"{kn} route {fn.__name__} launches "
-                                       f"{launches}; expected 2 {key}")
-                if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or \
-                        out.dtype != np.uint8:
-                    raise RuntimeError(f"bad output {out.shape} {out.dtype}")
-                if fn == ev.upscale_batch:
-                    counts[kn] = launches[key]
-                if head == "mxu":
-                    n_diff = int((out != want).sum())
-                    print(f"{kn} route {fn.__name__} vs the K3 route: "
-                          f"{n_diff} of {out.size} bytes differ")
-                    if n_diff:
-                        raise RuntimeError(f"{kn} route bytes differ from "
-                                           "K3's")
-            t0 = time.perf_counter()
-            ev_cpu = NetEvaluator(params, fast=True, device="cpu", **cfg)
-            _u8_gate(f"{kn} route {CROP_H}x{CROP_W} crop, card vs CPU path",
-                     ev.upscale(crop), ev_cpu.upscale(crop))
-            _u8_gate(f"{kn} route {CROP_H}x{CROP_W} crop YUV, card vs CPU",
-                     ev.upscale_yuv(crop), ev_cpu.upscale_yuv(crop))
-            print(f"{kn} route CPU path: {time.perf_counter() - t0:.1f} s")
-            # timings
-            reps = 5
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                ev.upscale_batch(imgs)
-            batch_ms = (time.perf_counter() - t0) * 1e3 / reps
-            dev_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
-                ev.stacked, x, **cfg), reps)
-            print(f"{kn} route upscale_batch (host clock, H2D + D2H "
-                  f"included): {batch_ms:.3f} ms/batch = "
-                  f"{mpix / batch_ms * 1e3:.2f} MPix/s")
-            print(f"{kn} route srnets_predict_fast on the card (CUDA "
-                  f"events): {dev_ms:.3f} ms/batch = "
-                  f"{mpix / dev_ms * 1e3:.2f} MPix/s (K3 route "
-                  f"{dev3_ms:.3f})")
-            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-            for site, ((st, src), kw) in zip(sites, calls):
-                n = src.shape[1] if kn == "K6" else src.shape[0]
-                D, M, nf, _ = st["hwt"].shape
-                flops, nbytes = _plain_work(st, n, src.numel() * 2, kw["v"],
-                                            kw["mix"])
-                if (n, kw["v"]) not in chain:
-                    chain[n, kw["v"]] = _chain_ms(torch, n, M, nf, kw["v"],
-                                                  False, D)
-                pkw = {k: v_ for k, v_ in kw.items() if k != "v"}
-                t = {
-                    "ms": _cuda_ms(torch, lambda: wrapper(st, src, **kw), 10),
-                    "plain_ms": _cuda_ms(torch, lambda: plain_fn(
-                        st, src, **pkw), 2),
-                    "bound_ms": max(flops / BF16_FLOPS_PER_MS,
-                                    nbytes / HBM_BYTES_PER_MS),
-                    "cublas_chain_ms": chain[n, kw["v"]],
-                }
-                print(f"{kn} {site} {kw['mix']}: image sites={n} "
-                      f"flops={flops:.4e} bytes={nbytes} "
-                      + " ".join(f"{k}={v_:.4f}" for k, v_ in t.items()))
-                print(f"{kn} {site} geometry: " + _plain_geometry(
-                    n, modes=M, depth=D, head=head))
-                if site.startswith("rgb"):
-                    for k in tot:
-                        tot[k] += t[k]
-            print(f"{kn} per batch (rgb s1 + s2): "
-                  + " ".join(f"{k}={v_:.4f}" for k, v_ in tot.items()))
-            tots[kn], errs[kn] = tot, err
-            del ev, ev_cpu, calls
-            torch.cuda.empty_cache()
     del ev3, x
     torch.cuda.empty_cache()
+    res = {r[0]: _plain_route(torch, tk, imgs, params, r, ref, dev3_ms, chain)
+           for r in PLAIN_ROUTES}
+    return [_plain_entry(PLAIN_ROUTES[0][1], SOURCE_K6, REPLACES_K6,
+                         res["K6"]),
+            _plain_entry(PLAIN_ROUTES[1][1], SOURCE_K8, REPLACES_K8,
+                         res["K8"], res["K8 vpu"][1])]
 
-    def entry(kn, key, src, rep, err):
-        return {"name": key, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counts[kn], "max_abs_err": err,
-                "ms": tots[kn]["ms"], "plain_ms": tots[kn]["plain_ms"],
-                "bound_ms": tots[kn]["bound_ms"], "bound_by": "operations",
-                "library_ms": None}
 
-    return [entry("K6", PLAIN_ROUTES[0][1], SOURCE_K6, REPLACES_K6,
-                  errs["K6"]),
-            entry("K8", PLAIN_ROUTES[1][1], SOURCE_K8, REPLACES_K8,
-                  max(errs["K8"], errs["K8 vpu"]))]
+def _plain_entry(name, src, rep, res, err=0.0):
+    """A plain route's entry of the kernels line from `_plain_route`'s
+    result (`err`: another route's max |diff| of the same kernel)."""
+    tot, e, count = res
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": count, "max_abs_err": max(e, err), "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "operations", "library_ms": None}
+
+
+def _k3_acc64(torch, uk, st, plane, *, modes, width, chunk=1 << 18):
+    """K3's raw accumulator (16, n) with every sum in float64 and the bf16
+    roundings of the activations and the float32 tanh kept (a reading's
+    reference: the exact sums the kernel and its plain version round)."""
+    _, offs = uk.window_offsets(modes)
+    shifts = [dy * width + dx for dy, dx in offs]
+    S = max(abs(o) for o in shifts)
+    flat = torch.nn.functional.pad(plane.double(), (S, S))
+    cols = torch.as_tensor([j for m in uk.window_tap_rows(modes) for r in m
+                            for j in r], device=plane.device)
+    f = {k: v.double() for k, v in st.items()}
+    n = plane.shape[0]
+    out = torch.empty((16, n), device=plane.device)
+    for c0 in range(0, n, chunk):
+        sites = torch.arange(c0, min(n, c0 + chunk), device=plane.device)
+        taps = torch.stack([flat[S + o + sites] for o in shifts], dim=1)
+        taps = taps[:, cols]
+        acc = torch.zeros((sites.shape[0], 16), device=plane.device)
+        for mi in range(len(modes)):
+            for r in range(4):
+                t = taps[:, (mi * 4 + r) * 4: (mi * 4 + r) * 4 + 4]
+                x = torch.relu(t @ f["w1t"][mi].T + f["b1"][mi])
+                for d in range(f["hwt"].shape[0]):
+                    x = torch.relu(x.to(torch.bfloat16).double()
+                                   @ f["hwt"][d, mi].T + f["hb"][d, mi])
+                sl = slice(16 * r, 16 * r + 16)
+                o = (x.to(torch.bfloat16).double() @ f["w6t"][mi, sl].T
+                     + f["b6"][mi, sl])
+                acc += torch.round(torch.tanh(o.float()) * 127.0)
+        out[:, c0: c0 + sites.shape[0]] = acc.T
+    return out
+
+
+def _exact_sum_readings(torch, uk, imgs):
+    """Readings, not gates: for the `_ftr2` weights (nf=128) and the nf=256
+    ones, stage 2's raw accumulator of `upscale_batch`'s K3 call from the
+    kernel and from its plain version (float32 sums) against `_k3_acc64`:
+    how often each departs from exact sums, and the two from each other."""
+    from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
+
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    for weights in (NET_WEIGHTS, NET_WEIGHTS_NF256):
+        ev = NetEvaluator.from_checkpoint(weights, fast=True, **cfg)
+        (calls,) = _record_calls(uk, ("stage_ensemble_apply_w",),
+                                 lambda: ev.upscale_batch(imgs))
+        (st, plane), kw = calls[1]
+        wk = dict(modes=kw["modes"], width=kw["width"])
+        k = uk.stage_ensemble_apply_w(st, plane, **dict(kw, mix=None))
+        p32 = uk.stage_ensemble_apply_w_plain(st, plane, **wk)
+        p64 = _k3_acc64(torch, uk, st, plane, **wk)
+
+        def share(a, b):
+            return (a != b).float().mean().item()
+
+        print(f"nf={st['hwt'].shape[2]} K3 rgb s2 raw acc, share of entries "
+              f"differing: kernel vs float64 sums {share(k, p64):.4e}, "
+              f"plain (float32) vs float64 sums {share(p32, p64):.4e}, "
+              f"kernel vs plain {share(k, p32):.4e} (readings)")
+        del ev, calls, k, p32, p64
+        torch.cuda.empty_cache()
+
+
+def _plain_nf256(torch, tk, imgs):
+    """Phase 14: plain net mode on the nf=256 weights (NET_WEIGHTS_NF256);
+    returns the nf=256 entries of the kernels line.  Every plain entry at
+    ragged n (`_plain_ragged`); how often K3 and its plain version depart
+    from exact sums at nf=128 and 256 (`_exact_sum_readings`); then the K3
+    route through
+    `NetEvaluator.from_checkpoint(..., fast=True)`: every K3 call of
+    `upscale_batch` and `upscale_yuv_batch` against its plain version (raw
+    accumulator and its own epilogue), both entry points counted (2 K3
+    launches each, none of another), the 135 x 240 crop card vs CPU path
+    (RGB and YUV), timings per call site with the launch geometry,
+    `srnets_predict_fast` device ms, host ms and MPix/s; then K6, K8 "mxu"
+    and K8 "vpu" (`_plain_route`; the crop for "vpu", whose bytes are its
+    own).  The raw share gate ACC_FRAC_NF256, the others as at nf=128."""
+    from mulut_tpu_torch.models import srnet as sn
+    from mulut_tpu_torch.models.torch_import import load_params_npz
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.pipelines.evaluate import NetEvaluator
+
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    counters = (tk.LAUNCHES, uk.LAUNCHES)
+    crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
+    mpix = BATCH * H * SCALE * W * SCALE / 1e6
+    name, tag = "stage_ensemble_apply_w", "nf=256 "
+    t0 = time.perf_counter()
+    ev = NetEvaluator.from_checkpoint(NET_WEIGHTS_NF256, fast=True, **cfg)
+    torch.cuda.synchronize()
+    print(f"nf=256: NetEvaluator.from_checkpoint(fast=True) built in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; stage stacks "
+          + ", ".join(f"{k}{tuple(v.shape)}" for k, v in
+                      ev.stacked[1].items()))
+    _plain_ragged(torch, uk, ev.stacked, frac=ACC_FRAC_NF256, tag=tag)
+    _exact_sum_readings(torch, uk, imgs)
+
+    def both():
+        ev.upscale_batch(imgs)
+        ev.upscale_yuv_batch(imgs)
+
+    (calls,) = _record_calls(uk, (name,), both)
+    sites = ["rgb s1", "rgb s2", "yuv s1", "yuv s2"]
+    if len(calls) != len(sites):
+        raise RuntimeError(f"nf=256: recorded {len(calls)} K3 calls")
+    err = 0.0
+    for site, ((st, plane), kw) in zip(sites, calls):
+        pkw = {k: v for k, v in kw.items() if k not in ("v", "mix")}
+        for kind in (None, kw["mix"]):
+            got = uk.stage_ensemble_apply_w(st, plane, **dict(kw, mix=kind))
+            want = uk.stage_ensemble_apply_w_plain(st, plane, mix=kind, **pkw)
+            torch.cuda.synchronize()
+            err = max(err, _gate(
+                f"{tag}K3 {site} {'raw acc' if kind is None else kind} "
+                f"{tuple(got.shape)} vs plain",
+                _differ(torch, got, want, kind),
+                RAW_ABS if kind is None else MIX_ABS,
+                max_frac=ACC_FRAC_NF256 if kind is None else ACC_FRAC))
+            del got, want
+    # the main path through the entry points, counted
+    ref, count = [], None
+    for fn in (ev.upscale_batch, ev.upscale_yuv_batch):
+        _reset(*counters)
+        out = fn(imgs)
+        launches = dict(uk.LAUNCHES)
+        print(f"{tag}{fn.__name__}: {imgs.shape} -> {out.shape}, launches "
+              f"{launches} + LUT {dict(tk.LAUNCHES)}")
+        if launches != _only(uk.LAUNCHES, name, 2) or any(
+                tk.LAUNCHES.values()):
+            raise RuntimeError(f"{tag}{fn.__name__} launches {launches}; "
+                               f"expected 2 {name}")
+        if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or \
+                out.dtype != np.uint8:
+            raise RuntimeError(f"bad output {out.shape} {out.dtype}")
+        count = count or launches[name]
+        ref.append(out)
+    t0 = time.perf_counter()
+    params = load_params_npz(NET_WEIGHTS_NF256)
+    ev_cpu = NetEvaluator(params, fast=True, device="cpu", **cfg)
+    _u8_gate(f"{tag}{CROP_H}x{CROP_W} crop, card vs CPU path",
+             ev.upscale(crop), ev_cpu.upscale(crop))
+    _u8_gate(f"{tag}{CROP_H}x{CROP_W} crop YUV, card vs CPU path",
+             ev.upscale_yuv(crop), ev_cpu.upscale_yuv(crop))
+    print(f"{tag}CPU path: {time.perf_counter() - t0:.1f} s")
+    del ev_cpu
+    # timings
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ev.upscale_batch(imgs)
+    batch_ms = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ev.upscale_yuv_batch(imgs)
+    yuv_ms = (time.perf_counter() - t0) * 1e3 / reps
+    x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2).float() / 255
+    dev3_ms = _cuda_ms(torch, lambda: sn.srnets_predict_fast(
+        ev.stacked, x, **cfg), reps)
+    print(f"{tag}upscale_batch (host clock, H2D + D2H included): "
+          f"{batch_ms:.3f} ms/batch = {mpix / batch_ms * 1e3:.2f} MPix/s")
+    print(f"{tag}upscale_yuv_batch (host clock): {yuv_ms:.3f} ms/batch = "
+          f"{mpix / yuv_ms * 1e3:.2f} MPix/s")
+    print(f"{tag}srnets_predict_fast on the card (CUDA events): "
+          f"{dev3_ms:.3f} ms/batch = {mpix / dev3_ms * 1e3:.2f} MPix/s")
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    chain = {}
+    for site, ((st, plane), kw) in zip(sites, calls):
+        n, flops, nbytes = _k3_work(st, plane, kw)
+        D, M, nf, _ = st["hwt"].shape
+        pkw = {k: v for k, v in kw.items() if k != "v"}
+        chain[plane.shape[0], kw["v"], nf] = _chain_ms(
+            torch, plane.shape[0], M, nf, kw["v"], False, D)
+        t = {
+            "ms": _cuda_ms(torch, lambda: uk.stage_ensemble_apply_w(
+                st, plane, **kw), 10),
+            "plain_ms": _cuda_ms(
+                torch, lambda: uk.stage_ensemble_apply_w_plain(
+                    st, plane, **pkw), 1),
+            "bound_ms": max(flops / BF16_FLOPS_PER_MS,
+                            nbytes / HBM_BYTES_PER_MS),
+            "cublas_chain_ms": chain[plane.shape[0], kw["v"], nf],
+        }
+        print(f"{tag}K3 {site} {kw['mix']}: image sites={n} kernel "
+              f"rows={plane.shape[0]} flops={flops:.4e} bytes={nbytes} "
+              + " ".join(f"{k}={v:.4f}" for k, v in t.items()))
+        print(f"{tag}K3 {site} geometry: " + _plain_geometry(
+            plane.shape[0], modes=M, depth=D, head="mxu", nf=nf))
+        if site.startswith("rgb"):
+            for k in tot:
+                tot[k] += t[k]
+    print(f"{tag}K3 per batch (rgb s1 + s2): "
+          + " ".join(f"{k}={v:.4f}" for k, v in tot.items()))
+    del ev, calls, x
+    torch.cuda.empty_cache()
+    res = {r[0]: _plain_route(torch, tk, imgs, params, r, ref, dev3_ms,
+                              chain, frac=ACC_FRAC_NF256,
+                              crops=r[5] == "vpu", plain_reps=1, tag=tag)
+           for r in PLAIN_ROUTES}
+    k3 = ({k: tot[k] for k in tot}, err, count)
+    return [_plain_entry("stage_ensemble_apply_w_nf256", SOURCE_K3,
+                         REPLACES_K3, k3),
+            _plain_entry(PLAIN_ROUTES[0][1] + "_nf256", SOURCE_K6,
+                         REPLACES_K6, res["K6"]),
+            _plain_entry(PLAIN_ROUTES[1][1] + "_nf256", SOURCE_K8,
+                         REPLACES_K8, res["K8"], res["K8 vpu"][1])]
 
 
 def _card() -> str:
@@ -2064,6 +2373,7 @@ def main() -> int:
     net_entries += _dense_routes(torch, tk, imgs)
     net_entries += _plain_routes(torch, tk, imgs)
     _training_half(torch, tk, imgs, (dev_ms, wf_site_ms))
+    net_entries += _plain_nf256(torch, tk, imgs)
 
     print(json.dumps({"kernels": [
         {"name": "window_fold_contract", "route": "cuda",
@@ -2184,19 +2494,22 @@ def _plain_ab_one(root) -> int:
     call's ms; per stage stack, K8 with either head and K6 on random taps
     of a stage call's size, ms; the dense K4 route's two stage calls (the
     dense weights of phase 11), ms; the depth-3 135 x 240 crop card vs
-    CPU.  Readings, not gates."""
+    CPU; then the same K3, K8 and K6 readings on the nf=256 weights (a
+    version that refuses nf=256 says so).  Readings, not gates."""
     torch, uk, NetEvaluator, imgs, tag, reading = _ab_setup(
         root, lambda k: k.startswith("plain_") and k != "plain_w8a8")
     from mulut_tpu_torch.models import srnet as sn
     from mulut_tpu_torch.models.torch_import import load_params_npz
 
     cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
-    for wname in (NET_WEIGHTS, NET_WEIGHTS_D3):
+
+    def routes(wname):
         params = load_params_npz(wname)
         ev = NetEvaluator(params, fast=True, **cfg)
         (calls,) = _record_calls(uk, ("stage_ensemble_apply_w",),
                                  lambda: ev.upscale_batch(imgs))
-        D = calls[0][0][0]["hwt"].shape[0]
+        D, _, nf, _ = calls[0][0][0]["hwt"].shape
+        lab = f"d{D}" if nf == 128 else f"nf{nf} d{D}"
         for s, ((st, plane), kw) in enumerate(calls):
             pkw = {k: v for k, v in kw.items() if k not in ("v", "mix")}
             for kind in (None, kw["mix"]):
@@ -2205,11 +2518,11 @@ def _plain_ab_one(root) -> int:
                 want = uk.stage_ensemble_apply_w_plain(st, plane, mix=kind,
                                                        **pkw)
                 torch.cuda.synchronize()
-                reading(f"d{D} K3 s{s + 1} {kind}",
+                reading(f"{lab} K3 s{s + 1} {kind}",
                         _differ(torch, got, want, kind))
             ms = _cuda_ms(torch, lambda: uk.stage_ensemble_apply_w(
                 st, plane, **kw), 20)
-            print(f"[{tag}] d{D} K3 s{s + 1} ms={ms:.4f}")
+            print(f"[{tag}] {lab} K3 s{s + 1} ms={ms:.4f}")
         g = torch.Generator(device="cuda").manual_seed(1)
         taps = torch.rand((H * W * BATCH * 3, 48), generator=g,
                           device="cuda").to(torch.bfloat16)
@@ -2222,15 +2535,19 @@ def _plain_ab_one(root) -> int:
                     uk.PLAIN_HEAD = head
                     ms = _cuda_ms(torch, lambda: uk.stage_ensemble_apply(
                         st, taps, n_modes=3, v=v, mix=mix), 20)
-                    print(f"[{tag}] d{D} K8 {head} s{s + 1} ms={ms:.4f}")
+                    print(f"[{tag}] {lab} K8 {head} s{s + 1} ms={ms:.4f}")
                 uk.PLAIN_HEAD = "mxu"
                 ms = _cuda_ms(torch, lambda: uk.stage_ensemble_apply_t(
                     st, tt, n_modes=3, v=v, mix=mix), 20)
-                print(f"[{tag}] d{D} K6 s{s + 1} ms={ms:.4f}")
+                print(f"[{tag}] {lab} K6 s{s + 1} ms={ms:.4f}")
         finally:
             uk.PLAIN_HEAD = old
         del taps, tt
         torch.cuda.empty_cache()
+        return params, ev
+
+    routes(NET_WEIGHTS)
+    params, ev = routes(NET_WEIGHTS_D3)
     crop = np.ascontiguousarray(imgs[0, :CROP_H, :CROP_W])
     card = ev.upscale(crop)
     ref = NetEvaluator(params, fast=True, device="cpu", **cfg).upscale(crop)
@@ -2248,6 +2565,12 @@ def _plain_ab_one(root) -> int:
         ms = _cuda_ms(torch, lambda: uk.stage_ensemble_apply(st, taps, **kw),
                       20)
         print(f"[{tag}] dense K4 s{s + 1} ms={ms:.4f}")
+    del ev4, calls
+    torch.cuda.empty_cache()
+    try:
+        routes(NET_WEIGHTS_NF256)
+    except NotImplementedError as e:
+        print(f"[{tag}] nf=256: not run ({e})")
     return 0
 
 
@@ -2634,8 +2957,9 @@ def _training_half(torch, tk, imgs, phase6=None, *, dev="cuda", sizes=None):
         _cascade_sites(torch, tk, ev, x, "deploy, structured frames", phase6)
 
 
-def _training_only() -> int:
-    """`--training`: the card, the kernel build and phase 13 alone."""
+def _phase_only(phase) -> int:
+    """`--training` and `--nf256`: the card, the kernel build (with
+    ptxas's report for `--nf256`) and phase 13 or 14 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2645,12 +2969,17 @@ def _training_only() -> int:
     from mulut_tpu_torch.ops import tail_kernel as tk
 
     print(f"card: {_card()}")
-    _build.build_all()
+    logs = _build.build_all()
     rng = np.random.default_rng(0)      # phase 3's draws: the same batch
     _random_luts(rng)
     imgs = rng.integers(0, 256, (BATCH, H, W, 3), dtype=np.int64).astype(
         np.uint8)
-    _training_half(torch, tk, imgs)
+    if phase == "training":
+        _training_half(torch, tk, imgs)
+    else:
+        _ptxas_report({k: v for k, v in logs.items()
+                       if k.startswith("plain_") and k != "plain_w8a8"})
+        print(json.dumps({"kernels": _plain_nf256(torch, tk, imgs)}))
     print(f"card: {_card()}")
     return 0
 
@@ -2661,8 +2990,8 @@ if __name__ == "__main__":
         sys.exit(_ab(ab[sys.argv[1]], sys.argv[2:]))
     if sys.argv[1:2] == ["--sass"]:
         sys.exit(_sass(sys.argv[2:]))
-    if sys.argv[1:2] == ["--training"]:
-        sys.exit(_training_only())
+    if sys.argv[1:2] in (["--training"], ["--nf256"]):
+        sys.exit(_phase_only(sys.argv[1][2:]))
     if sys.argv[1:2] == ["--ab-one"]:
         one = {"plain": _plain_ab_one, "w8a8": _w8a8_ab_one}[sys.argv[2]]
         sys.exit(one(sys.argv[3]))

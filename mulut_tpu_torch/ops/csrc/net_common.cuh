@@ -6,8 +6,9 @@
 // round(127 tanh) accumulation, the block's mode and tile loop with the
 // raw accumulator's carry across modes, K3's stage-mix epilogue (the JAX
 // package's _apply_stage_mix_t, and its site-major twin _apply_stage_mix),
-// which every kernel with a mix epilogue takes over as it is, and the
-// launch helpers.
+// which every kernel with a mix epilogue takes over as it is, the launch
+// helpers, and a ring of shared-memory slots for weights too large to
+// stage whole (the plain body at nf=256).
 
 #pragma once
 
@@ -93,6 +94,73 @@ __device__ __forceinline__ void stage_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   fence_async_shared();
 }
+
+// A ring of SLOTS shared-memory slots of BYTES bytes each, for operands
+// too large to stage whole (plain_body.cuh's nf=256 hidden layers).  Fill
+// i of a sequence lands in slot i % SLOTS, copied by the bulk-copy engine
+// and announced on the slot's transaction barrier; each of WARPS warps
+// reads the fills in sequence order.  A warp waits for fill i (`wait`)
+// before it reads it, and releases it (`release`) once its reads are done
+// (its wgmmas waited for); the release that completes fill i's count
+// issues fill i + SLOTS into the slot, so no thread is set aside as a
+// producer and no warp waits for another's release.  A warp releases a
+// fill only after waiting for it, and fill i + SLOTS is issued only after
+// every warp released fill i: the counts of two fills of one slot never
+// mix, and a wait never meets a barrier two phases away.  No deadlock
+// while SLOTS >= 2 and each warp holds at most two fills unreleased.
+// Both run between wgmmas in flight, so neither branches within a warp.
+template <int SLOTS, int BYTES, int WARPS>
+struct SlotRing {
+  uint32_t data;  // shared address of slot 0 (1024-byte aligned)
+  uint32_t bars;  // SLOTS transaction barriers, 8 bytes apart, then SLOTS
+                  // release counts, 4 bytes apart
+
+  __device__ SlotRing(unsigned char* slots, unsigned char* barriers)
+      : data(smem_u32(slots)), bars(smem_u32(barriers)) {}
+
+  // Run by every thread before the block barrier that precedes any fill.
+  __device__ void init(unsigned char* barriers) const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < SLOTS; ++s) {
+        mbar_init(bars + 8 * s, 1);
+        reinterpret_cast<unsigned*>(barriers + 8 * SLOTS)[s] = 0u;
+      }
+      mbar_init_fence();
+    }
+  }
+  // Byte offset of fill i's slot from slot 0.
+  __device__ int offset(int i) const { return (i % SLOTS) * BYTES; }
+  // Fill i: BYTES from global src (16-byte aligned) into its slot; one
+  // thread.
+  __device__ void fill(int i, const void* src) const {
+    const uint32_t bar = bars + 8 * (i % SLOTS);
+    mbar_expect(bar, BYTES);
+    bulk_copy(data + offset(i), src, BYTES, bar);
+  }
+  __device__ void wait(int i) const {
+    mbar_wait(bars + 8 * (i % SLOTS), (uint32_t)(i / SLOTS) & 1u);
+  }
+  // Run by every thread of a warp after its reads of fill i: lane 0
+  // counts the warp's release, and if it completes the count, issues fill
+  // i + SLOTS from `next` (nullptr past the sequence's end).  Predicated,
+  // no branch.
+  __device__ void release(int i, const void* next) const {
+    const uint32_t s = (uint32_t)(i % SLOTS);
+    asm volatile(
+        "{\n.reg .pred p, q;\n.reg .u32 old;\n"
+        "setp.eq.u32 p, %0, 0;\n"
+        "mov.u32 old, 0;\n"
+        "@p atom.shared.inc.u32 old, [%1], %2;\n"
+        "setp.eq.and.u32 q, old, %2, p;\n"
+        "setp.ne.and.u64 q, %3, 0, q;\n"
+        "@q mbarrier.arrive.expect_tx.shared::cta.b64 _, [%4], %5;\n"
+        "@q cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%6], [%3], %5, [%4];\n}\n" ::"r"(threadIdx.x & 31),
+        "r"(bars + 8 * SLOTS + 4 * s), "r"(WARPS - 1), "l"(next),
+        "r"(bars + 8 * s), "r"(BYTES), "r"(data + s * BYTES)
+        : "memory");
+  }
+};
 
 // The bf16 head's weights as feature pairs: w1 (nf, 4) -> sW1[k][nf/2]
 // (features 2q, 2q+1 of tap k in one word), b1 (nf,) -> sB1[nf/2].

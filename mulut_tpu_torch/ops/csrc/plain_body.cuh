@@ -75,6 +75,47 @@
 // past n does not run.  Depth is a runtime value, up to kMaxDepth = 4
 // (199 KB of shared memory).
 //
+// nf = 256 (plain_wide_kernel).  One hidden layer is 256 x 256 bf16, 128
+// KB: two of them, or even one beside the rest, do not fit a block's 227
+// KB, and the registers hold less too.  The block, its tiles, the heads
+// and the output head (64 rows x 256, 32 KB, staged per mode) stay; what
+// changes:
+//
+//  - the hidden layers stream through a ring of kWideSlots = 5 slots of 16
+//    KB (net_common.cuh's SlotRing).  A fill is the 64 rows of one quarter
+//    of a layer's outputs by one half of its inputs (2 K-blocks of 64
+//    rows), copied by the bulk-copy engine (cp.async.bulk, on a
+//    transaction barrier) from `hws`, the layers laid out by the wrapper
+//    in fill order and already swizzled (unit_kernel.ring_layers), so one
+//    copy of 16 KB lands a fill as wgmma reads it.  All three warpgroups
+//    read every fill, in the order mode, tile round, rotation, layer,
+//    quarter, half; a warpgroup whose tile lies past n still waits for and
+//    releases its round's fills.  The release that completes a fill's
+//    count (4 warps x 3 warpgroups) issues the fill 5 places on into the
+//    same slot;
+//  - a quarter of a layer is two chains of 8 wgmma m64n64k16, one per half
+//    of the inputs, each a group, summed once in float32.  The tensor
+//    cores drop low bits of each step's sum, so one chain of 16 steps per
+//    output (tried first) departed from exact sums far more often than
+//    float32 FMAs; two of 8 and the add depart about as often (stage 2's
+//    raw accumulator against float64 sums: 8.9e-4 of its entries, cuBLAS
+//    float32 7.8e-4; chip_smoke.py phase 14 on an NVIDIA H100 80GB HBM3,
+//    PERF.md).  After the second group is issued the first is waited for
+//    and its fill released, so a warpgroup holds at most two fills;
+//  - registers: the activations are 16 k-tiles (64 registers) and a
+//    quarter's two partial sums 64; the packed outputs of the first three
+//    quarters (48 registers) wait in shared memory, thread-private (the
+//    stash, 24 KB per warpgroup, as 16-byte words 128 threads apart,
+//    conflict-free), and are read back after the last quarter's chains;
+//  - the raw accumulator stays in shared memory across rotations as well
+//    as modes, as int16 (exact), so it takes no registers during chains.
+//
+// Shared memory at nf=256: output head 32 KB, accumulators 24 KB, stash
+// 72 KB, vectors 9.6 KB, barriers, ring 80 KB: 224,256 B with the
+// alignment, at any depth.  The bound: the same operations, 20.27 ms per
+// batch at nf=256, depth 2; beside it each fill is read from L2 by every
+// block for 192 site-passes, ~51 GB per stage call.
+//
 // Measured: PERF.md (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W).
 //
 // Template parameters pick where the taps come from (SRC), the head (HEAD)
@@ -95,6 +136,8 @@ struct PlainParams {
   const __nv_bfloat16* w1t;    // (M, nf, 4)
   const __nv_bfloat16* b1;     // (M, nf)
   const __nv_bfloat16* hwt;    // (D, M, nf, nf): [d][m][out][in]
+  const __nv_bfloat16* hws;    // nf=256: hwt in fill order, swizzled
+                               // (unit_kernel.ring_layers); else unused
   const __nv_bfloat16* hb;     // (D, M, nf)
   const __nv_bfloat16* w6t;    // (M, 64, nf): row 16*r + lane
   const __nv_bfloat16* b6;     // (M, 64)
@@ -139,20 +182,47 @@ constexpr size_t smem_bytes(int depth) {
          1024;  // room to align the base
 }
 
-// The vectors' shared arrays (layout above).
+// The nf=256 layout from a 1024-byte-aligned base: the output head w6t[m]
+// as 4 swizzled K-blocks of 64 rows; the raw accumulators [tile][8][128
+// threads] as int16 (integers of at most 4 * 6 * 127); the stash
+// [group][12 k-tiles][128 threads] of 16-byte words; the vectors at
+// nf=256; the ring's barriers and release counts; then the ring, per slot
+// the 64 rows of one quarter of a layer's outputs by one half of its
+// inputs, as 2 swizzled K-blocks of 64 rows.
+constexpr int kWideNF = 256;
+constexpr int kWideSlots = 5;
+constexpr int kWideSlotBytes = 2 * kKBlock;
+constexpr int kWideW6Base = 0;
+constexpr int kWideAccBase = kWideW6Base + 4 * kKBlock;
+constexpr int kStashBase = kWideAccBase + kBlockSites * 16 * 2;
+constexpr int kStashBytes = kGroups * 12 * 128 * 16;
+constexpr int kWideVecBase = kStashBase + kStashBytes;
+constexpr int kWideVecBytes = (kWideNF + kHeadRows + kMaxDepth * kWideNF +
+                               4 * kWideNF + kMaxModes * 16) * 4;
+constexpr int kBarBase = kWideVecBase + kWideVecBytes;
+constexpr int kRingBase = (kBarBase + kWideSlots * 12 + 1023) / 1024 * 1024;
+constexpr int kWideSmem = kRingBase + kWideSlots * kWideSlotBytes + 1024;
+static_assert(kWideSmem <= 232448, "a block's shared memory");
+
+// The ring of the nf=256 layers: every warp of the block reads each fill.
+using WideRing = SlotRing<kWideSlots, kWideSlotBytes, 4 * kGroups>;
+
+// The vectors' shared arrays at `base` (layouts above).
+template <int NF>
 struct Vecs {
-  float* b1;      // [nf]
+  float* b1;      // [nf] (the float32 head at nf=128)
   float* b6;      // [64]
   float* hb;      // [kMaxDepth][nf]
-  uint32_t* w1;   // float32 head: float [nf][4]; bf16 head: [4][nf/2]
+  uint32_t* w1;   // the float32 head at nf=128: float [nf][4]; else
+                  // bf16 pairs [4][nf/2], then b1's pairs [nf/2]
   int* offs;      // [kMaxModes][16]
 
-  __device__ explicit Vecs(unsigned char* sm)
-      : b1(reinterpret_cast<float*>(sm + kVecBase)),
-        b6(b1 + kPlainNF),
+  __device__ explicit Vecs(unsigned char* base)
+      : b1(reinterpret_cast<float*>(base)),
+        b6(b1 + NF),
         hb(b6 + kHeadRows),
-        w1(reinterpret_cast<uint32_t*>(hb + kMaxDepth * kPlainNF)),
-        offs(reinterpret_cast<int*>(w1 + 4 * kPlainNF)) {}
+        w1(reinterpret_cast<uint32_t*>(hb + kMaxDepth * NF)),
+        offs(reinterpret_cast<int*>(w1 + 4 * NF)) {}
 };
 
 // Mode mi's weights into shared memory (layout above).  The caller's
@@ -160,7 +230,8 @@ struct Vecs {
 // the stores before any warpgroup's wgmma reads them.
 template <int NF, int HEAD>
 __device__ __forceinline__ void stage_mode(const PlainParams& p, int mi,
-                                           unsigned char* sm, const Vecs& v) {
+                                           unsigned char* sm,
+                                           const Vecs<NF>& v) {
   const auto rows = [](int, int c) { return 8 * c; };
   for (int d = 0; d < p.depth; ++d)
     stage_sw128<kPlainThreads>(
@@ -186,6 +257,46 @@ __device__ __forceinline__ void stage_mode(const PlainParams& p, int mi,
     v.hb[i] = __bfloat162float(
         p.hb[((long long)d * p.modes + mi) * NF + (i - d * NF)]);
   }
+  for (int i = threadIdx.x; i < kHeadRows; i += kPlainThreads)
+    v.b6[i] = __bfloat162float(p.b6[mi * kHeadRows + i]);
+  stage_wait();  // the copies and stores above, before wgmma reads them
+}
+
+// stage_mode at nf=256: mode mi's output head and vectors (the layers go
+// through the ring), in loops that are not unrolled, so that no trip
+// count of theirs stays live across the tiles (ptxas spilled them when
+// they were).  Both heads read w1 and b1 as bf16 pairs (stage_head_pairs'
+// layout): the float32 head widens them itself (f32_head_pairs).
+__device__ __forceinline__ void stage_wide(const PlainParams& p, int mi,
+                                           unsigned char* sm,
+                                           const Vecs<kWideNF>& v) {
+  constexpr int NF = kWideNF;
+  const __nv_bfloat16* w6 = p.w6t + (long long)mi * kHeadRows * NF;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < kHeadRows * NF / 8; i += kPlainThreads) {
+    const int r = i / (NF / 8), c = i % (NF / 8);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(sm + kWideW6Base + sw128(r, c, kKBlock))),
+                 "l"(w6 + r * NF + 8 * c)
+                 : "memory");
+  }
+  const __nv_bfloat16* w1 = p.w1t + (long long)mi * NF * 4;
+  const __nv_bfloat16* b1 = p.b1 + (long long)mi * NF;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < 4 * NF / 2; i += kPlainThreads) {
+    const int k = i / (NF / 2), f = 2 * (i % (NF / 2));
+    v.w1[i] = bits(w1[f * 4 + k]) | bits(w1[(f + 1) * 4 + k]) << 16;
+  }
+#pragma unroll 1
+  for (int i = threadIdx.x; i < NF / 2; i += kPlainThreads)
+    v.w1[2 * NF + i] = bits(b1[2 * i]) | bits(b1[2 * i + 1]) << 16;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < p.depth * NF; i += kPlainThreads) {
+    const int d = i / NF;
+    v.hb[i] = __bfloat162float(
+        p.hb[((long long)d * p.modes + mi) * NF + (i - d * NF)]);
+  }
+#pragma unroll 1
   for (int i = threadIdx.x; i < kHeadRows; i += kPlainThreads)
     v.b6[i] = __bfloat162float(p.b6[mi * kHeadRows + i]);
   stage_wait();  // the copies and stores above, before wgmma reads them
@@ -226,6 +337,47 @@ __device__ __forceinline__ void f32_head(const float4* sW1, const float* sB1,
   }
 }
 
+// f32_head from w1 and b1 as bf16 pairs (stage_head_pairs' layout: sW1
+// [4][nf/2], sB1 [nf/2], features 2q and 2q+1 in word q): the same float32
+// values, so the same sums bit for bit, in half the registers a float4
+// pair of w1 rows takes.
+template <int NF, int KA>
+__device__ __forceinline__ void f32_head_pairs(const uint32_t* sW1,
+                                               const uint32_t* sB1,
+                                               const uint32_t (&tl)[4],
+                                               const uint32_t (&th)[4],
+                                               int t, uint32_t (&a)[KA][4]) {
+  float xl[4], xh[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    xl[k] = __uint_as_float(tl[k] << 16);
+    xh[k] = __uint_as_float(th[k] << 16);
+  }
+#pragma unroll
+  for (int kt = 0; kt < NF / 16; ++kt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 8 * kt + 4 * h + t;  // features 2q, 2q + 1
+      uint32_t w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[k] = sW1[k * NF / 2 + q];
+      const float4 w0 = make_float4(
+          __uint_as_float(w[0] << 16), __uint_as_float(w[1] << 16),
+          __uint_as_float(w[2] << 16), __uint_as_float(w[3] << 16));
+      const float4 w1 = make_float4(
+          __uint_as_float(w[0] & 0xFFFF0000u),
+          __uint_as_float(w[1] & 0xFFFF0000u),
+          __uint_as_float(w[2] & 0xFFFF0000u),
+          __uint_as_float(w[3] & 0xFFFF0000u));
+      const uint32_t bq = sB1[q];
+      const float b0 = __uint_as_float(bq << 16);
+      const float b1 = __uint_as_float(bq & 0xFFFF0000u);
+      a[kt][2 * h] = pack_relu(dot4(xl, w0) + b0, dot4(xl, w1) + b1);
+      a[kt][2 * h + 1] = pack_relu(dot4(xh, w0) + b0, dot4(xh, w1) + b1);
+    }
+  }
+}
+
 // One block per SM (135 KB of shared memory at depth 2, 199 KB at 4), so
 // the minimum of 1 block lets ptxas give each of the 384 threads up to 168
 // registers for the activations (32), a layer's accumulator (64) and the
@@ -238,7 +390,7 @@ plain_kernel(const PlainParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint64_t desc = sw128_desc(smem_u32(sm));
-  const Vecs v(sm);
+  const Vecs<NF> v(sm + kVecBase);
 
   const int lane = threadIdx.x & 31;
   const int t = lane & 3;
@@ -293,20 +445,211 @@ plain_kernel(const PlainParams p) {
       });
 }
 
-// The stage-mix instances of one tap source and head; a site-major output
-// has no packed form.
+// One quarter of a layer at nf=256 (64 outputs) over fills i and i+1 of
+// the ring (its rows by inputs 0-127 and 128-255, at pass positions u and
+// u+1): two chains of 8 wgmma m64n64k16, p0 over a's k-tiles 0-7 and p1
+// over 8-15, each a group; after the second is issued the first is waited
+// for and its fill released.  The quarter's sum is p0 + p1, rounded once
+// in float32: a chain of 16 steps loses more to the tensor cores' sums
+// than two of 8 and one add.
+template <class Next>
+__device__ __forceinline__ void quarter_chain(float (&c)[32],
+                                              const uint32_t (&a)[16][4],
+                                              const WideRing& ring,
+                                              uint64_t slot0, int i, int u,
+                                              Next&& next) {
+  float p0[32], p1[32];
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    ring.wait(i + j);
+    const uint64_t b = slot0 + (ring.offset(i + j) >> 4);
+    float (&p)[32] = j ? p1 : p0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const uint64_t d = b + (((k >> 2) * kKBlock + (k & 3) * 32) >> 4);
+      if (k == 0)
+        wgmma_n64_first(p, a[8 * j], d);
+      else
+        wgmma_n64(p, a[8 * j + k], d);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<1>();
+  ring.release(i, next(u));
+  wgmma_wait<0>();
+  ring.release(i + 1, next(u + 1));
+  fence_operands(p0);
+  fence_operands(p1);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) c[e] = p0[e] + p1[e];
+}
+
+// The pass at nf=256 (the layout and the ring above; the same function
+// as plain_kernel's).  One block per SM (224,256 B of shared memory), 384
+// threads of up to 168 registers: the activations (64), a quarter's two
+// partial sums (64), the addressing.  The raw accumulator lives in its
+// shared slots (sAcc) across rotations as well as modes, so it takes no
+// registers while the chains run (integer sums, exact in any order).
+template <int SRC, int MIX, int HEAD>
+__global__ void __launch_bounds__(kPlainThreads, 1)
+plain_wide_kernel(const PlainParams p) {
+  static_assert(kWideSlots < 8, "a fill's successor lies at most one pass on");
+  constexpr int NF = kWideNF;
+  constexpr int KT = NF / 16;  // k-tiles of an activation
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint64_t desc = sw128_desc(smem_u32(sm));
+  const uint64_t slot0 = desc + (kRingBase >> 4);
+  const Vecs<NF> v(sm + kWideVecBase);
+  const WideRing ring(sm + kRingBase, sm + kBarBase);
+
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int group = threadIdx.x >> 7;
+  const int wt = threadIdx.x & 127;  // thread in the warpgroup
+  // the warp's 16 rows of the tile
+  const int row0 = (wt >> 5) * 16 + (lane >> 2);
+  const bool wide = p.v > 8;  // two n8 tiles of output lanes
+  // this thread's stash words, k-tile kt at stash[kt * 128]
+  uint4* stash = reinterpret_cast<uint4*>(sm + kStashBase) +
+                 group * 12 * 128 + wt;
+
+  if (SRC == kPlane) stage_offsets<kPlainThreads>(v.offs, p.offs, p.modes);
+  ring.init(sm + kBarBase);
+  __syncthreads();
+
+  // Every warpgroup runs `rounds` tile rounds per mode, tile group +
+  // kGroups * round, live while it starts before n.  A pass reads
+  // per_pass fills, at pass position u = 8 * layer + 2 * quarter + half.
+  const long long block0 = (long long)blockIdx.x * kBlockSites;
+  const int live_tiles = (int)min((long long)(kBlockSites / kTile),
+                                  (p.n - block0 + kTile - 1) / kTile);
+  const int rounds = (live_tiles + kGroups - 1) / kGroups;
+  const int per_pass = 8 * p.depth;
+  // hws holds mode mi's fills at mi * per_pass + u, 16 KB each
+  const auto src = [&](int f) {
+    return p.hws + (long long)f * (kWideSlotBytes / 2);
+  };
+  if (threadIdx.x == 0)
+    for (int f = 0; f < min(kWideSlots, p.modes * rounds * 4 * per_pass);
+         ++f)
+      ring.fill(f, src(f));
+
+  int i = 0;  // the next fill, in the sequence every warp walks
+  for (int mi = 0; mi < p.modes; ++mi) {
+    __syncthreads();  // the previous mode's weights are no longer read
+    stage_wide(p, mi, sm, v);
+    __syncthreads();
+#pragma unroll 1
+    for (int round = 0; round < rounds; ++round) {
+      const int j = group + kGroups * round;
+      const bool live = j < live_tiles;
+      short* slot = reinterpret_cast<short*>(sm + kWideAccBase) +
+                    j * 8 * 128 + wt;
+#pragma unroll 1
+      for (int r = 0; r < 4; ++r) {
+        // the source of the fill kWideSlots places after pass position u
+        // of this pass: in the next pass past the pass's end (the same
+        // fills again, but in the next mode's after the mode's last
+        // pass), none past the last mode's
+        const bool last = r == 3 && round == rounds - 1;
+        const auto next = [&](int u) -> const __nv_bfloat16* {
+          const int uf = u + kWideSlots;
+          const int f = mi * per_pass + uf -
+                        (uf >= per_pass && !last ? per_pass : 0);
+          return f < p.modes * per_pass ? src(f) : nullptr;
+        };
+        if (!live) {  // no tile: only wait for and release the fills
+#pragma unroll 1
+          for (int u = 0; u < per_pass; ++u, ++i) {
+            ring.wait(i);
+            ring.release(i, next(u));
+          }
+          continue;
+        }
+        const long long s_lo = block0 + j * kTile + row0;
+        const int col = (mi * 4 + r) * 4;
+        uint32_t tl[4], th[4];
+        load_taps2<SRC>(p.taps, p.n, p.modes, v.offs, s_lo, col, tl);
+        load_taps2<SRC>(p.taps, p.n, p.modes, v.offs, s_lo + 8, col, th);
+        uint32_t a[KT][4];
+        if (HEAD == kHeadF32)
+          f32_head_pairs<NF>(v.w1, v.w1 + 2 * NF, tl, th, t, a);
+        else
+          bf16x2_head<NF>(v.w1, v.w1 + 2 * NF, tl, th, t, a);
+#pragma unroll 1
+        for (int d = 0; d < p.depth; ++d, i += 8) {
+          // outputs 0-191 packed into the stash, 192-255 into a's last 4
+          // k-tiles once the last quarter's chains no longer read a
+#pragma unroll 1
+          for (int q = 0; q < 3; ++q) {
+            float c[32];
+            quarter_chain(c, a, ring, slot0, i + 2 * q, 8 * d + 2 * q, next);
+            uint32_t out[4][4];
+            pack_layer<8>(c, v.hb + d * NF + 64 * q, t, out, 0);
+#pragma unroll
+            for (int kt = 0; kt < 4; ++kt)
+              stash[(4 * q + kt) * 128] =
+                  make_uint4(out[kt][0], out[kt][1], out[kt][2], out[kt][3]);
+          }
+          float c[32];
+          quarter_chain(c, a, ring, slot0, i + 6, 8 * d + 6, next);
+          pack_layer<8>(c, v.hb + d * NF + 192, t, a, 12);
+#pragma unroll
+          for (int kt = 0; kt < 12; ++kt) {
+            const uint4 w = stash[kt * 128];
+            a[kt][0] = w.x;
+            a[kt][1] = w.y;
+            a[kt][2] = w.z;
+            a[kt][3] = w.w;
+          }
+        }
+        float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        const uint64_t rows = desc + ((kWideW6Base + r * 16 * 128) >> 4);
+        if (wide)
+          accumulate<KT, 2>(o, a, rows, v.b6 + 16 * r, t);
+        else
+          accumulate<KT, 1>(o, a, rows, v.b6 + 16 * r, t);
+        const bool first = mi == 0 && r == 0;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          slot[e * 128] = (short)((first ? 0 : (int)slot[e * 128]) +
+                                  (int)o[e >> 2][e & 3]);
+      }
+      if (live && mi + 1 == p.modes) {
+        float acc[2][4];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e >> 2][e & 3] = (float)slot[e * 128];
+        const long long s_lo = block0 + j * kTile + row0;
+        store_mix<MIX, SRC == kSite>(acc, p.out, p.n, s_lo, s_lo + 8, t,
+                                     p.modes, p.inv_4m);
+      }
+    }
+  }
+}
+
+// The stage-mix instances of one width, tap source and head; a site-major
+// output has no packed form.
 template <int NF, int SRC, int HEAD>
 int launch_mix(const PlainParams& p, int mix, cudaStream_t s) {
   const long long blocks = (p.n + kBlockSites - 1) / kBlockSites;
   return dispatch_mix<SRC != kSite>(mix, [&](auto m) {
-    return launch_kernel(plain_kernel<NF, SRC, decltype(m)::value, HEAD>, p,
-                         blocks, kPlainThreads, smem_bytes(p.depth), s);
+    if constexpr (NF == kWideNF)
+      return launch_kernel(plain_wide_kernel<SRC, decltype(m)::value, HEAD>,
+                           p, blocks, kPlainThreads, (size_t)kWideSmem, s);
+    else
+      return launch_kernel(plain_kernel<NF, SRC, decltype(m)::value, HEAD>,
+                           p, blocks, kPlainThreads, smem_bytes(p.depth), s);
   });
 }
 
-// Checks shared by the entry points; 0 when p may be launched.
-inline int check_params(const PlainParams* p) {
+// Checks shared by the entry points; 0 when p may be launched at nf.
+inline int check_params(const PlainParams* p, int nf) {
   if (p->depth < 0 || p->depth > kMaxDepth) return (int)cudaErrorInvalidValue;
+  if (nf == kWideNF &&
+      (p->hws == nullptr || reinterpret_cast<uintptr_t>(p->hws) % 16))
+    return (int)cudaErrorInvalidValue;
   return check_ensemble(p->modes, p->v, p->n);
 }
 

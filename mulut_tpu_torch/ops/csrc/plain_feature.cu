@@ -17,10 +17,11 @@
 extern "C" int plain_feature(const PlainParams* p, int nf, int mix,
                              void* stream) {
   if (p->n <= 0) return 0;
-  if (int e = check_params(p)) return e;
+  if (int e = check_params(p, nf)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nf) {
     case 128: return launch_mix<128, kFeature, kHeadF32>(*p, mix, s);
+    case 256: return launch_mix<256, kFeature, kHeadF32>(*p, mix, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,7 +21,7 @@
 extern "C" int plain_site(const PlainParams* p, int nf, int mix, int head,
                           void* stream) {
   if (p->n <= 0) return 0;
-  if (int e = check_params(p)) return e;
+  if (int e = check_params(p, nf)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nf) {
     case 128:
@@ -29,6 +29,12 @@ extern "C" int plain_site(const PlainParams* p, int nf, int mix, int head,
         return launch_mix<128, kSite, kHeadF32>(*p, mix, s);
       if (head == kHeadBf16)
         return launch_mix<128, kSite, kHeadBf16>(*p, mix, s);
+      return (int)cudaErrorInvalidValue;
+    case 256:
+      if (head == kHeadF32)
+        return launch_mix<256, kSite, kHeadF32>(*p, mix, s);
+      if (head == kHeadBf16)
+        return launch_mix<256, kSite, kHeadBf16>(*p, mix, s);
       return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -16,15 +16,17 @@
 // for mix 0 (raw acc) and 2 (round(acc/M)); (16, n) bf16 for 3 (clip of
 // round(acc/M)); (1, n) bf16 for 1 (inner mix / 255); (4, n) uint32 for 4
 // (the x4 sub-pixels packed 4 per word, byte sx of word sy = lane
-// 4*sy+sx).  Weights as in PlainParams, contiguous; hwt and w6t 16-byte
-// aligned.  Returns a cudaError_t (0 on success).
+// 4*sy+sx).  Weights as in PlainParams, contiguous; hwt, hws and w6t
+// 16-byte aligned.  nf is 128 or 256 (hws then given).  Returns a
+// cudaError_t (0 on success).
 extern "C" int plain_window(const PlainParams* p, int nf, int mix,
                             void* stream) {
   if (p->n <= 0) return 0;
-  if (int e = check_params(p)) return e;
+  if (int e = check_params(p, nf)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nf) {
     case 128: return launch_mix<128, kPlane, kHeadF32>(*p, mix, s);
+    case 256: return launch_mix<256, kPlane, kHeadF32>(*p, mix, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

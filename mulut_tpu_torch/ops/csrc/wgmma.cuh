@@ -1,6 +1,7 @@
 // Hopper warpgroup MMA (wgmma) pieces for sm_90a: A from registers, B
 // from shared memory in the K-major 128-byte-swizzled layout, float32
-// accumulators.
+// accumulators; and the transaction barriers (mbarrier) and bulk copies
+// (cp.async.bulk) that can fill B while other wgmmas run.
 //
 // A warpgroup is 4 consecutive warps (128 threads); m64nNk16 multiplies a
 // 64 x 16 bf16 A tile (warp w holds rows 16w .. 16w+15 in mma.sync's
@@ -73,6 +74,67 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Waits until at most N committed wgmma groups of this warpgroup are
+// pending (N = 0: wgmma_wait_all).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// A transaction barrier (mbarrier, 8 bytes, 8-byte aligned, at shared
+// address bar) whose phases complete after `count` arrivals and the bytes
+// they announce.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Makes this thread's mbar_init visible to the async proxy (the bulk-copy
+// engine) and, after the next block barrier, to the other threads.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that announces `bytes` of asynchronous copies, which
+// complete the phase as they land.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed (the
+// phase the barrier is in, or the one before it; acquire: the data of
+// the copies that completed it is visible after the wait).  The whole
+// warp waits together (a vote), so the loop is no divergent path between
+// wgmmas in flight.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!__all_sync(0xffffffffu, done));
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by the bulk-copy engine, completing on barrier bar.  It writes
+// through the async proxy, which wgmma reads through: after the wait no
+// proxy fence is needed.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Keeps the compiler from moving accesses of d across this point (the
 // accumulators are written asynchronously between fence and wait).
 template <int R>
@@ -105,6 +167,27 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(1));
+}
+
+// d (64 x 64) = a (64 x 16, registers) * B (16 x 64 at desc): the first
+// step of a chain, which neither reads d nor keeps its old values live
+__device__ __forceinline__ void wgmma_n64_first(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
 }
 
 // d (64 x 128) = a (64 x 16, registers) * B (16 x 128 at desc), plus d

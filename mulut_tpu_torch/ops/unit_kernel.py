@@ -33,7 +33,10 @@ the kernel.
 K4, K5, K7, K9 and K10 share one pass body (csrc/dense_body.cuh), so K5,
 K7 and K9 return K4's raw accumulator bit for bit; K3, K6 and K8 share
 another (csrc/plain_body.cuh), so K6 and K8 with the float32 head return
-K3's.  The JAX package runs K6 and K8 in several schedules
+K3's.  The plain body is built for nf=128 and nf=256; at nf=256 its
+layers stream through shared memory, and the wrapper hands them over in
+the order they stream, already swizzled (`ring_layers`).  The JAX
+package runs K6 and K8 in several schedules
 (`PLAIN_T_SCHEDULE`, `PLAIN_SCHEDULE`, `PLAIN_INTERLEAVE`), which only
 reorder the TPU's instructions and give the same outputs; the port has no
 such flags, and one kernel per contract stands for every schedule (the
@@ -96,8 +99,8 @@ HEADS = ("mxu", "vpu")
 
 _MAX_MODES = 6            # csrc/net_common.cuh kMaxModes
 _LANES = 16               # output lanes per rotation (csrc kHeadRows / 4)
-_PLAIN_NF = 128           # csrc/plain_*.cu instantiation (the artifacts)
-_PLAIN_MAX_DEPTH = 4      # csrc/plain_body.cuh kMaxDepth (shared memory)
+_PLAIN_NF = (128, 256)    # csrc/plain_*.cu instantiations (the artifacts)
+_PLAIN_MAX_DEPTH = 4      # csrc/plain_body.cuh kMaxDepth
 _DENSE_NF = 64            # csrc/dense_*.cu instantiation (reference)
 _W8A8_NF = (128, 256)     # csrc/plain_w8a8.cu instantiations (the artifacts)
 _SMEM_MAX = 232_448       # H100: a block's opt-in shared memory
@@ -425,6 +428,7 @@ class _PlainDesc(ctypes.Structure):
         ("w1t", ctypes.c_void_p),
         ("b1", ctypes.c_void_p),
         ("hwt", ctypes.c_void_p),
+        ("hws", ctypes.c_void_p),
         ("hb", ctypes.c_void_p),
         ("w6t", ctypes.c_void_p),
         ("b6", ctypes.c_void_p),
@@ -436,6 +440,21 @@ class _PlainDesc(ctypes.Structure):
         ("inv_4m", ctypes.c_float),
         ("offs", ctypes.c_int * (_MAX_MODES * 16)),
     ]
+
+
+def ring_layers(hwt: torch.Tensor) -> torch.Tensor:
+    """The nf=256 hidden layers (D, M, 256, 256) [d][m][out][in] in the
+    order the plain kernels' ring streams them (csrc/plain_body.cuh,
+    `plain_wide_kernel`): (M, D, 4, 2, 2, 64, 64), per mode, layer,
+    quarter q of the outputs and half h of the inputs one 16 KB fill of 2
+    K-blocks of 64 inputs, each 64 rows of 64 bf16 with a row's 16-byte
+    chunk c at chunk c ^ (row % 8) (wgmma's 128-byte swizzle), so one bulk
+    copy lands a fill as wgmma reads it."""
+    D, M = hwt.shape[:2]
+    x = hwt.reshape(D, M, 4, 64, 2, 2, 8, 8).permute(1, 0, 2, 4, 5, 3, 6, 7)
+    r = torch.arange(64, device=hwt.device)[:, None]
+    c = torch.arange(8, device=hwt.device)[None, :] ^ (r & 7)
+    return x[..., r, c, :].contiguous()
 
 
 @functools.cache
@@ -456,19 +475,23 @@ def _launch_plain(name: str, st: dict, src: torch.Tensor, out: torch.Tensor,
     stack `st` (kernels' layout), the tap source `src` (n sites) and `out`,
     with epilogue `mix` (and, for K8, `head`)."""
     D, _, nf, _ = st["hwt"].shape
-    if nf != _PLAIN_NF or modes > _MAX_MODES or D > _PLAIN_MAX_DEPTH:
+    if nf not in _PLAIN_NF or modes > _MAX_MODES or D > _PLAIN_MAX_DEPTH:
+        widths = " and ".join(f"nf={w}" for w in _PLAIN_NF)
         raise NotImplementedError(
-            f"the CUDA plain-unit kernels are built for nf={_PLAIN_NF}, at "
-            f"most {_MAX_MODES} modes and depth {_PLAIN_MAX_DEPTH}; got "
-            f"nf={nf}, {modes} modes, depth {D}")
+            f"the CUDA plain-unit kernels are built for {widths}, at most "
+            f"{_MAX_MODES} modes and depth {_PLAIN_MAX_DEPTH}; got nf={nf}, "
+            f"{modes} modes, depth {D}")
     ts = [st[k] for k in _PLAIN_KEYS]
     if not all(t.is_contiguous() for t in ts + [src]):
         raise ValueError(f"{name} needs contiguous tensors")
     if any(t.data_ptr() % 16 for t in (st["hwt"], st["w6t"])):
         raise ValueError("hwt and w6t must be 16-byte aligned")
+    # nf=256: the layers stream through shared memory in fill order
+    hws = ring_layers(st["hwt"]) if nf == 256 else None
     d = _PlainDesc()
     (d.taps, d.w1t, d.b1, d.hwt, d.hb, d.w6t, d.b6) = [
         t.data_ptr() for t in [src] + ts]
+    d.hws = None if hws is None else hws.data_ptr()
     d.out, d.n, d.modes, d.depth = out.data_ptr(), n, modes, D
     d.v = _LANES if v is None else v
     d.inv_4m = float(np.float32(1.0 / (4 * modes)))

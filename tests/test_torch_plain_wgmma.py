@@ -277,7 +277,7 @@ def test_geometry_constants_are_the_sources():
     assert C["kGroups"] == cs.PLAIN_GROUPS
     assert C["kTile"] == cs.PLAIN_TILE
     assert C["kBlockSites"] == cs.PLAIN_BLOCK_SITES
-    assert C["kPlainNF"] == cs.PLAIN_NF == tuk._PLAIN_NF
+    assert (C["kPlainNF"], C["kWideNF"]) == cs.PLAIN_NFS == tuk._PLAIN_NF
     assert C["kMaxDepth"] == cs.PLAIN_MAX_DEPTH == tuk._PLAIN_MAX_DEPTH
     assert C["kMaxModes"] == cs.DENSE_MAX_MODES == tuk._MAX_MODES
     code = re.sub(r"//[^\n]*", "", (CSRC / "plain_body.cuh").read_text())
