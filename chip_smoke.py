@@ -22,14 +22,16 @@ Needs one CUDA card and `nvcc`; exits non-zero without them.  Phases:
   5. `LutEvaluator.upscale_batch` on 8 x 270 x 480 x 3 uint8 frames (the
      repo's bench shape) with every launch counter set to 0 just before and
      read just after (6 window contractions, 1 tail, no
-     `gather_fold_contract`) and `simplex.corner_lams_t` counted (no
-     call); one frame is checked byte-equal against the port's CPU path;
+     `gather_fold_contract`) and the plain contraction bodies counted
+     (`_plain_calls`; no call); one frame is checked byte-equal against
+     the port's CPU path;
      then intervals 5 and 6 (random LUTs of their sizes) on a 2 x 135 x 240
      crop, card against the CPU path, byte-equal;
   6. timings with CUDA events: batch ms and output MPix/s, and per kernel
-     call site its time, its bound, its plain version's time and, for the
-     JAX-boundary contraction, one `torch.einsum` over the gathered rows (a
-     yardstick, never called by the port); a profile of the cascade.
+     call site its time, its bound, its plain version's time and one
+     `torch.einsum` over the gathered rows (a yardstick, never called by
+     the port; `_window_timings`, `_boundary_timings`, shared with phase
+     15); a profile of the cascade.
 
 Then net mode (`NetEvaluator(fast=True)`, the tap-MLP units run directly):
 
@@ -175,8 +177,42 @@ slots):
      in phase 12 (the crop for "vpu" only: the others must give the K3
      route's bytes).
 
+Then the LUT configurations of the rank-format tables and the integer
+cascade (`_lut_rank`; K1 in both forms, K2 at six modes):
+
+ 15. on the same batch, interval 4, random int8 LUTs from seed 15 (phase 3's
+     for "x4-rank"): "x4-sdyeho" (`LutEvaluator`, the packed cascade over
+     the kernel path's formats: rank tables for e/h/o, the (L**4, 64)
+     folded and int32 (L**4, 16) inner stages), "x4-rank" (the packed
+     cascade on `prepare_expanded_luts(shared_quad=True)`, every final
+     stage rank), and "x2-sdy", "x3-sdy", "x2-eho" (`LutEvaluator`, the
+     integer cascade `lut_cascade_int` over JAX's default formats: rank
+     rows at u = 16, 36 and per-rotation rank tables at u = 4, 9), and
+     "x2-s-i3" (x2 "s", one stage, interval 3: L = 33, the 16-corner
+     folded (L**4, 256) rows, as tests/test_interval3.py): per
+     configuration the table build (ms, bytes, peak memory); every K1 call
+     of the cascade against its plain version byte for byte and, where
+     fold_contract.cu has an instance, each rotation against the
+     JAX-boundary `gather_fold_contract` (C = 5, 6, 8 or 16) on the same
+     planes, itself against its plain version (`_k1_checks`, as phase 4);
+     at x4 the tail against its
+     plain version; the entry point with every launch counter set to 0
+     just before and read just after (12 and 6 window contractions, 1
+     tail at x4) and the plain contraction bodies counted (no call); for
+     "x4-rank" the bytes equal to phase 5's; the 2 x 135 x 240 crop on the
+     card against the port's CPU path; timings: the cascade's device ms
+     and its glue outside K1 and K2, the entry point's host ms and MPix/s,
+     per K1 call site ms, plain ms, bound and an einsum over the gathered
+     rows (a yardstick), a profile of the x2 and x3 cascades; after
+     "x4-rank", `upscale_yuv_batch` on phase 3's LUTs (6 window
+     contractions, 1 tail counted; the crop card vs CPU; host ms); at the
+     end the JAX-boundary K1 at C != 16 timed on the recorded inputs, its
+     launches the sum of the configurations' counted runs (none).
+
 Prints a `{"kernels": [...]}` line (K1 in both forms, K2-K11; K8 with the
-float32 head; K3, K6 and K8 at nf=256 under names ending in "_nf256") and
+float32 head; K3, K6 and K8 at nf=256 under names ending in "_nf256"; K1
+per phase 15 configuration, K2 at six modes and the JAX-boundary K1 at
+C != 16 under names ending in the configuration or "_rank") and
 ends with one `{"ok": true, "device": {...}}` line.  Any failed phase
 raises.
 
@@ -196,10 +232,12 @@ prints each kernel instance's SASS instruction count by opcode
 
     python3 chip_smoke.py --training
     python3 chip_smoke.py --nf256
+    python3 chip_smoke.py --lut-rank
 
 build the kernels and run phase 13 (its deploy timings without phase 6's
-beside them) or phase 14 (with ptxas's report of the plain sources)
-alone; readings and gates as in the full run.
+beside them), phase 14 (with ptxas's report of the plain sources) or phase
+15 (with ptxas's report of the K1 sources) alone; readings and gates as in
+the full run.
 """
 
 from __future__ import annotations
@@ -352,16 +390,6 @@ def _k128_of(torch, tab):
     return t.reshape(-1, 128)
 
 
-def _boundary_inputs(tk, sx, xp, kw):
-    """Per rotation of a recorded `window_fold_contract` call, the base
-    index and 16-corner weights of its sites, 8 junk sites appended: the
-    JAX-boundary K1's inputs (`gather_fold_contract`)."""
-    return [(base, sx.corner_lams_t(*fr, interval=kw["interval"]))
-            for base, fr in tk.window_base_fracs(
-                xp, taps=kw["taps"], origin=kw["origin"], grid=kw["grid"],
-                interval=kw["interval"])]
-
-
 def _cuda_ms(torch, fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -396,6 +424,188 @@ def _record_calls(mod, names, run):
         for n in names:
             setattr(mod, n, orig[n])
     return [calls[n] for n in names]
+
+
+@contextlib.contextmanager
+def _plain_calls(tk, sx):
+    """Count the calls of the plain contraction bodies (the torch
+    gather-and-weight forms K1 stands in for) inside the block."""
+    names = [(tk, "gather_fold_contract_plain"),
+             (sx, "simplex_planes_quad_int"), (sx, "corner_lams_t"),
+             (sx, "sorted_weights_t")]
+    counts = {n: 0 for _, n in names}
+    saved = [getattr(m, n) for m, n in names]
+
+    def counted(n, fn):
+        def wrapper(*args, **kw):
+            counts[n] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    for (m, n), fn in zip(names, saved):
+        setattr(m, n, counted(n, fn))
+    try:
+        yield counts
+    finally:
+        for (m, n), fn in zip(names, saved):
+            setattr(m, n, fn)
+
+
+def _window_labels(tk, calls):
+    """A label per recorded window call: u, rotations, table shape, dtype
+    and row format."""
+    out = []
+    for (tab, _), kw in calls:
+        u = kw["u"]
+        C = tk.table_terms(tab, u=u, interval=kw["interval"])[0] if u > 1 \
+            else 16
+        out.append(f"u={u} rot={len(kw['taps'])} {tuple(tab.shape)} "
+                   f"{str(tab.dtype)[6:]} C={C}")
+    return out
+
+
+def _rotation_inputs(tk, tab, xp, kw):
+    """Per rotation of a recorded `window_fold_contract` call: its table
+    and the JAX-boundary K1's row index, (C, Np+8) weights and C, built
+    from the same planes in the table's format (as the TPU's `_contract`
+    builds them; 8 junk sites appended)."""
+    out = []
+    for r, (base, fr) in enumerate(tk.window_base_fracs(
+            xp, taps=kw["taps"], origin=kw["origin"], grid=kw["grid"],
+            interval=kw["interval"])):
+        t = tab[r] if tab.dim() == 3 else tab
+        out.append((t,) + tk.boundary_inputs(t, base, fr, u=kw["u"],
+                                             interval=kw["interval"]))
+    return out
+
+
+def _k1_checks(torch, tk, calls, labels, what):
+    """Each recorded `window_fold_contract` call against its plain version
+    byte for byte, at the main path's shapes; where fold_contract.cu has an
+    instance, each rotation against `gather_fold_contract` on the same
+    planes (`_rotation_inputs`), itself byte-equal to its plain version.
+    A u == 1 int8 table is read there through its k128 spread (u = 8,
+    `_k128_of`) and the rotations summed; int32 u == 1 rows have no
+    instance.  Returns the two forms' max abs errors against their plain
+    versions and the JAX-boundary calls at u > 1, labelled, for the
+    timings."""
+    wf_err = k1_err = 0.0
+    bcalls = []
+    for label, ((tab, xp), kw) in zip(labels, calls, strict=True):
+        got = tk.window_fold_contract(tab, xp, **kw)
+        want = tk.window_fold_contract_plain(tab, xp, **kw)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        wf_err = max(wf_err, err)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{what}: window_fold_contract differs from "
+                               f"plain at {label}: max abs err {err}")
+        u, outs = kw["u"], []
+        rots = (_rotation_inputs(tk, tab, xp, kw)
+                if u > 1 or tab.dtype == torch.int8 else [])
+        for r, (t, idx, wt, C) in enumerate(rots):
+            kt, ku = (t, u) if u > 1 else (_k128_of(torch, t), 8)
+            if (C, ku) not in tk._FOLD_INSTANCES:
+                break
+            b = tk.gather_fold_contract(kt, idx, wt, C=C, u=ku)
+            bp = tk.gather_fold_contract_plain(kt, idx, wt, C=C, u=ku)
+            torch.cuda.synchronize()
+            err = (b - bp).abs().max().item()
+            k1_err = max(k1_err, err)
+            if not torch.equal(b, bp):
+                raise RuntimeError(f"{what}: gather_fold_contract (C={C}, "
+                                   f"u={ku}) differs from plain at {label} "
+                                   f"r{r}: max abs err {err}")
+            outs.append(b)
+            if u > 1:
+                bcalls.append((f"{what} {label}"
+                               + (f" r{r}" if len(rots) > 1 else ""),
+                               t, idx, wt, C, u))
+        if outs and not (torch.equal(got, torch.stack(outs)) if u > 1 else
+                         torch.equal(got, sum(o[0, :got.numel()]
+                                              for o in outs).to(torch.int32))):
+            raise RuntimeError(f"{what}: window_fold_contract differs from "
+                               f"gather_fold_contract at {label}")
+        print(f"{what}: window_fold_contract {label}, grid {xp.shape[0]} x "
+              f"{kw['grid']}, out {tuple(got.shape)} {got.dtype}: byte-equal "
+              "to plain"
+              + (f", and to gather_fold_contract C={rots[0][3]} on each "
+                 f"rotation's planes (itself byte-equal to plain)" if outs
+                 else ""))
+    return wf_err, k1_err, bcalls
+
+
+def _window_timings(torch, tk, calls, labels, what):
+    """Per recorded window call: ms, plain ms, bound and an einsum over
+    the gathered rows (a yardstick the port never calls).  The bound is
+    bytes: the plane read once, u entries per distinct (row, term) pair of
+    non-zero weight (a table shared by the rotations counted once), the
+    output written once.  Returns the sums and the ms per label."""
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, einsum_ms=0.0)
+    per_site = {}
+    for label, ((tab, xp), kw) in zip(labels, calls, strict=True):
+        u = kw["u"]
+        out = tk.window_fold_contract(tab, xp, **kw)
+        n = xp.shape[0] * kw["grid"][0] * kw["grid"][1]
+        keys, ein = [], []
+        for r, (t, idx, wt, C) in enumerate(_rotation_inputs(tk, tab, xp, kw)):
+            if u == 1:              # no junk sites
+                idx, wt = idx[:n], wt[:, :n]
+            k = torch.arange(C, device=idx.device).view(C, 1)
+            rot = r * t.shape[0] if tab.dim() == 3 else 0
+            keys.append(torch.unique(((idx.long() + rot) * C + k)[wt > 0]))
+            ein.append((t, idx.long(), wt, C))
+        n_pairs = torch.unique(torch.cat(keys)).numel()
+        nbytes = (xp.numel() * 4 + n_pairs * u * tab.element_size()
+                  + out.numel() * 4)
+        del out, keys
+
+        def einsums():
+            return [torch.einsum("cn,ncu->un", wt, t[idx].view(
+                idx.numel(), C, u).float()) for t, idx, wt, C in ein]
+
+        t_ = {
+            "ms": _cuda_ms(torch, lambda: tk.window_fold_contract(
+                tab, xp, **kw), 20),
+            "plain_ms": _cuda_ms(torch, lambda: tk.window_fold_contract_plain(
+                tab, xp, **kw), 3),
+            "bound_ms": nbytes / HBM_BYTES_PER_MS,
+            "einsum_ms": _cuda_ms(torch, einsums, 3),
+        }
+        del ein
+        for key in tot:
+            tot[key] += t_[key]
+        per_site[label] = t_["ms"]
+        print(f"{what}: window_fold_contract {label} sites={n} "
+              f"row_term_pairs={n_pairs} bytes={nbytes} "
+              + " ".join(f"{k}={v:.4f}" for k, v in t_.items()))
+    return tot, per_site
+
+
+def _boundary_timings(torch, tk, bcalls):
+    """The JAX-boundary K1 on recorded inputs (`_k1_checks`): ms, plain
+    ms, bound (distinct rows read once, the index, weights and output) and
+    one einsum over the gathered rows.  Returns the sums."""
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for label, t, idx, wt, C, u in bcalls:
+        Np = idx.shape[0]
+        rows = torch.unique(idx).numel()
+        nbytes = rows * C * u + 4 * Np + 4 * C * Np + 4 * u * Np
+        t_ = {
+            "ms": _cuda_ms(torch, lambda: tk.gather_fold_contract(
+                t, idx, wt, C=C, u=u), 20),
+            "plain_ms": _cuda_ms(torch, lambda: tk.gather_fold_contract_plain(
+                t, idx, wt, C=C, u=u), 3),
+            "bound_ms": nbytes / HBM_BYTES_PER_MS,
+            "library_ms": _cuda_ms(torch, lambda: torch.einsum(
+                "cn,ncu->un", wt, t[idx.long()].view(Np, C, u).float()), 3),
+        }
+        for key in tot:
+            tot[key] += t_[key]
+        print(f"gather_fold_contract {label}: C={C} u={u} Np={Np} "
+              f"rows={rows} " + " ".join(f"{k}={v:.4f}"
+                                         for k, v in t_.items()))
+    return tot
 
 
 def _profile(torch, cascade, dev_ms: float, runs: int = 3, top: int = 15,
@@ -2178,47 +2388,8 @@ def main() -> int:
         raise RuntimeError(f"recorded {len(wf_calls)} contraction and "
                            f"{len(k2_calls)} tail calls; expected "
                            f"{len(sites)} and 1")
-    wf_err = k1_err = 0.0
-    k1_calls = []     # the JAX-boundary K1's inputs, from the same planes
-    for site, ((tab, xp), kw1) in zip(sites, wf_calls):
-        got = tk.window_fold_contract(tab, xp, **kw1)
-        want = tk.window_fold_contract_plain(tab, xp, **kw1)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        wf_err = max(wf_err, err)
-        if not torch.equal(got, want):
-            raise RuntimeError(f"window_fold_contract differs at {site}: "
-                               f"max abs err {err}")
-        u = kw1["u"]
-        old = []
-        for r, (base, wt) in enumerate(_boundary_inputs(tk, sx, xp, kw1)):
-            ktab, ku = (tab, u) if u > 1 else (_k128_of(torch, tab), 8)
-            k1 = tk.gather_fold_contract(ktab, base, wt, C=16, u=ku)
-            k1_plain = tk.gather_fold_contract_plain(ktab, base, wt, C=16,
-                                                     u=ku)
-            torch.cuda.synchronize()
-            err = (k1 - k1_plain).abs().max().item()
-            k1_err = max(k1_err, err)
-            if not torch.equal(k1, k1_plain):
-                raise RuntimeError(f"gather_fold_contract differs at {site} "
-                                   f"r{r}: max abs err {err}")
-            old.append(k1)
-            if u > 1:
-                label = site if len(kw1["taps"]) == 1 else f"{site} r{r}"
-                k1_calls.append((label, tab, base, wt, u))
-        if u > 1:
-            same = torch.equal(got, torch.stack(old))
-        else:
-            same = torch.equal(got, sum(o[0, :got.numel()] for o in old)
-                               .to(torch.int32))
-        if not same:
-            raise RuntimeError(f"window_fold_contract differs from the "
-                               f"JAX-boundary K1 at {site}")
-        print(f"window_fold_contract {site}: (u={u}, rotations="
-              f"{len(kw1['taps'])}, grid {xp.shape[0]} x {kw1['grid']}, "
-              f"out {tuple(got.shape)} {got.dtype}) byte-equal to plain and "
-              f"to gather_fold_contract on the same planes (itself "
-              f"byte-equal to plain)")
+    wf_err, k1_err, k1_calls = _k1_checks(torch, tk, wf_calls, sites,
+                                          "phase 4")
     (folded, quads), kw = k2_calls[0]
     got = tk.tail_assemble(folded, quads, **kw)
     bc = int(np.prod(kw["lead"]))
@@ -2237,29 +2408,19 @@ def main() -> int:
 
     main_launches = {"gather_fold_contract": 0,
                      "window_fold_contract": len(sites), "tail_assemble": 1}
-    lams = {"corner_lams_t": 0}
-    corner_lams_t = sx.corner_lams_t
-
-    def counted_lams(*args, **kw_):
-        lams["corner_lams_t"] += 1
-        return corner_lams_t(*args, **kw_)
-
     _reset(tk.LAUNCHES, uk.LAUNCHES)
-    sx.corner_lams_t = counted_lams
-    try:
+    with _plain_calls(tk, sx) as plain:
         t0 = time.perf_counter()
         out = ev.upscale_batch(imgs)
         first_s = time.perf_counter() - t0
-    finally:
-        sx.corner_lams_t = corner_lams_t
     launches = dict(tk.LAUNCHES)
     print(f"upscale_batch: {imgs.shape} -> {out.shape} {out.dtype}, "
-          f"launches {launches}, corner_lams_t calls {lams['corner_lams_t']}")
+          f"launches {launches}, plain contraction calls {plain}")
     if (launches != main_launches or any(uk.LAUNCHES.values())
-            or lams["corner_lams_t"]):
-        raise RuntimeError(f"main path launches {launches} and "
-                           f"{lams['corner_lams_t']} corner_lams_t calls; "
-                           f"expected {main_launches} and none")
+            or any(plain.values())):
+        raise RuntimeError(f"main path launches {launches} and plain "
+                           f"contraction calls {plain}; expected "
+                           f"{main_launches} and none")
     if out.shape != (BATCH, H * SCALE, W * SCALE, 3) or out.dtype != np.uint8:
         raise RuntimeError(f"bad output {out.shape} {out.dtype}")
     t0 = time.perf_counter()
@@ -2301,56 +2462,9 @@ def main() -> int:
     print(f"lut_cascade_packed on the card (CUDA events): {dev_ms:.3f} "
           f"ms/batch = {mpix / dev_ms * 1e3:.2f} MPix/s")
 
-    wf = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    wf_site_ms = {}     # per call site, for phase 13's tables beside these
-    for site, ((tab, xp), kw1) in zip(sites, wf_calls):
-        u, out_w = kw1["u"], tk.window_fold_contract(tab, xp, **kw1)
-        n = xp.shape[0] * kw1["grid"][0] * kw1["grid"][1]
-        pairs = []
-        for base, wt in _boundary_inputs(tk, sx, xp, kw1):
-            if u == 1:              # no junk sites
-                base, wt = base[:n], wt[:, :n]
-            m = torch.arange(16, device=dev).view(16, 1)
-            pairs.append(torch.unique((base.long() * 16 + m)[wt > 0]))
-        n_pairs = torch.unique(torch.cat(pairs)).numel()
-        nbytes = xp.numel() * 4 + n_pairs * u + out_w.numel() * 4
-        t = {
-            "ms": _cuda_ms(torch, lambda: tk.window_fold_contract(
-                tab, xp, **kw1), 20),
-            "plain_ms": _cuda_ms(torch, lambda: tk.window_fold_contract_plain(
-                tab, xp, **kw1), 3),
-            "bound_ms": nbytes / HBM_BYTES_PER_MS,
-        }
-        for key in wf:
-            wf[key] += t[key]
-        wf_site_ms[site] = t["ms"]
-        print(f"window_fold_contract {site}: u={u} rotations="
-              f"{len(kw1['taps'])} sites={n} row_corner_pairs={n_pairs} "
-              f"bytes={nbytes} "
-              + " ".join(f"{k}={v:.4f}" for k, v in t.items())
-              + " library_ms=none (no single torch call computes it)")
-    del out_w
-
-    k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    for site, tab, base, wt, u in k1_calls:
-        C, Np = 16, base.shape[0]
-        rows = torch.unique(base).numel()
-        nbytes = rows * C * u + 4 * Np + 4 * C * Np + 4 * u * Np
-        t = {
-            "ms": _cuda_ms(torch, lambda: tk.gather_fold_contract(
-                tab, base, wt, C=C, u=u), 20),
-            "plain_ms": _cuda_ms(torch, lambda: tk.gather_fold_contract_plain(
-                tab, base, wt, C=C, u=u), 3),
-            "bound_ms": nbytes / HBM_BYTES_PER_MS,
-            "library_ms": _cuda_ms(torch, lambda: torch.einsum(
-                "cn,ncu->un", wt, tab[base.long()].view(Np, C, u).float()),
-                3),
-        }
-        for key in k1:
-            k1[key] += t[key]
-        print(f"gather_fold_contract {site}: C={C} u={u} Np={Np} rows={rows} "
-              + " ".join(f"{k}={v:.4f}" for k, v in t.items())
-              + f" gathered_bytes={Np * C * u}")
+    # wf_site_ms: per call site, for phase 13's tables beside these
+    wf, wf_site_ms = _window_timings(torch, tk, wf_calls, sites, "phase 6")
+    k1 = _boundary_timings(torch, tk, k1_calls)
     nmodes = len(folded) + len(quads)
     words = bc * kw["h"] * SCALE * wp
     k2 = {
@@ -2374,6 +2488,7 @@ def main() -> int:
     net_entries += _plain_routes(torch, tk, imgs)
     _training_half(torch, tk, imgs, (dev_ms, wf_site_ms))
     net_entries += _plain_nf256(torch, tk, imgs)
+    net_entries += _lut_rank(torch, tk, imgs, out)
 
     print(json.dumps({"kernels": [
         {"name": "window_fold_contract", "route": "cuda",
@@ -2957,9 +3072,276 @@ def _training_half(torch, tk, imgs, phase6=None, *, dev="cuda", sizes=None):
         _cascade_sites(torch, tk, ev, x, "deploy, structured frames", phase6)
 
 
+#: Phase 15 (`_lut_rank`): the LUT configurations of the rank-format tables
+#: and the integer cascade.  Per label: (stages, modes, scale, interval
+#: (None: INTERVAL), the table flags, the packed cascade); random int8 LUTs
+#: from seed 15 (the all-rank x4 run uses phase 3's LUTs).  "x2-s-i3" is
+#: the interval-3 configuration of tests/test_interval3.py: L = 33, too
+#: many rows for rank tables, so 16-corner folded rows.
+LUT_RANK = {
+    "x4-sdyeho": (2, "sdyeho", 4, None, "kernel", True),
+    "x4-rank": (2, "sdy", 4, None, "rank", True),
+    "x2-sdy": (2, "sdy", 2, None, "default", False),
+    "x3-sdy": (2, "sdy", 3, None, "default", False),
+    "x2-eho": (2, "eho", 2, None, "default", False),
+    "x2-s-i3": (1, "s", 2, 3, "default", False),
+}
+
+
+def _lut_rank(torch, tk, imgs, ref16=None, *, dev="cuda"):
+    """Phase 15: the rank-format tables and the integer cascade on the card
+    (module docstring).  `ref16` is phase 5's `upscale_batch` output on
+    phase 3's LUTs, recomputed when not given.  `dev` exists for a
+    rehearsal on the CPU at a small size (with `_cuda_ms` and the
+    `torch.cuda` calls stubbed); the card run takes the default."""
+    from mulut_tpu_torch.ops import ensemble as ens
+    from mulut_tpu_torch.ops import simplex as sx
+    from mulut_tpu_torch.pipelines.evaluate import LutEvaluator
+
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    x = torch.from_numpy(np.ascontiguousarray(imgs.transpose(0, 3, 1, 2))).to(
+        dev)
+    crop = np.ascontiguousarray(imgs[:2, :CROP_H, :CROP_W])
+    mpix_per = BATCH * H * W / 1e6
+    lut3 = _random_luts(np.random.default_rng(0), INTERVAL)  # phase 3
+    entries, boundary, boundary_launches, boundary_err = [], [], 0, 0.0
+    for label, (stages, modes, scale, interval, flags, packed) in \
+            LUT_RANK.items():
+        interval = interval or INTERVAL
+        rng = np.random.default_rng(15)
+        L = 2 ** (8 - interval) + 1
+        luts = lut3 if label == "x4-rank" else {
+            f"s{s + 1}_{m}": rng.integers(
+                -127, 128, (L ** 4, scale ** 2 if s + 1 == stages else 1),
+                dtype=np.int64).astype(np.int8)
+            for s in range(stages) for m in modes}
+        cfg = dict(stages=stages, modes=modes, scale=scale, interval=interval)
+        # tables on the card: build time, bytes, peak memory of the build
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if flags == "rank":
+            ev = None
+            tabs = ens.prepare_expanded_luts(luts, interval=interval,
+                                             shared_quad=True, device=dev)
+        else:
+            ev = LutEvaluator(luts, **cfg, device=dev)
+            tabs = ev.luts
+            if ev.kernel != packed:
+                raise RuntimeError(f"{label}: packed path {ev.kernel}")
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - mem0
+        tab_bytes = sum(t.numel() * t.element_size() for t in tabs.values())
+        print(f"{label}: tables {tab_bytes} bytes on the card, built in "
+              f"{build_ms:.1f} ms, build peak {peak} bytes above the "
+              f"{mem0} already held; "
+              + ", ".join(f"{k} {tuple(t.shape)} {str(t.dtype)[6:]}"
+                          for k, t in tabs.items()))
+
+        def cascade(img=x):
+            if packed:
+                return tk.lut_cascade_packed(tabs, img, **cfg)
+            return ens.lut_cascade_int(tabs, img, expanded=True, **cfg)
+
+        def entry(batch):
+            if ev is not None:
+                return ev.upscale_batch(batch)
+            chw = torch.from_numpy(np.ascontiguousarray(
+                batch.transpose(0, 3, 1, 2))).to(dev)
+            out = tk.unpack_u32(tk.lut_cascade_packed(tabs, chw, **cfg),
+                                chw.shape[:-2], chw.shape[-2], chw.shape[-1],
+                                scale)
+            return out.transpose(0, 2, 3, 1)
+
+        # every K1 call of the cascade against its plain version
+        wf_calls, k2_calls = _record_calls(
+            tk, ("window_fold_contract", "tail_assemble"), cascade)
+        n_win = len(modes) * stages
+        if len(wf_calls) != n_win or len(k2_calls) != int(packed):
+            raise RuntimeError(f"{label}: recorded {len(wf_calls)} "
+                               f"contraction and {len(k2_calls)} tail calls")
+        labels = _window_labels(tk, wf_calls)
+        wf_err, k1_err, bcalls = _k1_checks(torch, tk, wf_calls, labels,
+                                            label)
+        boundary += [b for b in bcalls if b[4] != 16]
+        boundary_err = max(boundary_err, k1_err)
+        k2 = None
+        if packed:
+            (folded, quads), kw2 = k2_calls[0]
+            got = tk.tail_assemble(folded, quads, **kw2)
+            bc, wp = int(np.prod(kw2["lead"])), tk._pad128(kw2["w"])
+            plain_k2 = dict(bc=bc, h=kw2["h"], wp=wp, scale=scale,
+                            davg=kw2["davg"])
+            want = tk.tail_assemble_plain(folded, quads, **plain_k2)
+            k2_err = (got.view(torch.uint8).int()
+                      - want.view(torch.uint8).int()).abs().max().item()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"{label}: tail_assemble differs: max abs "
+                                   f"err {k2_err}")
+            nmodes = len(folded) + len(quads)
+            words = bc * kw2["h"] * scale * wp
+            k2 = {"ms": _cuda_ms(torch, lambda: tk.tail_assemble(
+                folded, quads, **kw2), 10),
+                "plain_ms": _cuda_ms(torch, lambda: tk.tail_assemble_plain(
+                    folded, quads, **plain_k2), 2),
+                "bound_ms": words * (4 * 4 * nmodes * 4 + 4)
+                / HBM_BYTES_PER_MS}
+            print(f"{label}: tail_assemble ({len(folded)} folded, "
+                  f"{len(quads)} quad modes) byte-equal to plain; "
+                  + " ".join(f"{k}={v:.4f}" for k, v in k2.items()))
+            del folded, quads, kw2, got, want
+        del k2_calls
+
+        # the entry point, counted
+        want = {"gather_fold_contract": 0, "window_fold_contract": n_win,
+                "tail_assemble": int(packed)}
+        _reset(tk.LAUNCHES)
+        with _plain_calls(tk, sx) as plain:
+            t0 = time.perf_counter()
+            out = entry(imgs)
+            first_s = time.perf_counter() - t0
+        launches = dict(tk.LAUNCHES)
+        boundary_launches += launches["gather_fold_contract"]
+        print(f"{label}: {'upscale_batch' if ev else 'lut_cascade_packed'} "
+              f"{imgs.shape} -> {out.shape} {out.dtype}, launches {launches}, "
+              f"plain contraction calls {plain}")
+        if card and (launches != want or any(plain.values())):
+            raise RuntimeError(f"{label}: launches {launches} and plain "
+                               f"calls {plain}; expected {want} and none")
+        if (out.shape != (BATCH, H * scale, W * scale, 3)
+                or out.dtype != np.uint8):
+            raise RuntimeError(f"{label}: bad output {out.shape} {out.dtype}")
+        if label == "x4-rank":
+            if ref16 is None:
+                ref16 = LutEvaluator(lut3, **cfg, device=dev).upscale_batch(
+                    imgs)
+            if not np.array_equal(out, ref16):
+                raise RuntimeError(
+                    f"x4-rank: {int((out != ref16).sum())} bytes differ from "
+                    "phase 5's 16-corner cascade")
+            print("x4-rank: bytes equal to phase 5's 16-corner tables' "
+                  "upscale_batch on the same batch and LUTs")
+        del out
+        # a crop: card against the port's CPU path
+        t0 = time.perf_counter()
+        if ev is not None:
+            got = ev.upscale_batch(crop)
+            ref = LutEvaluator(luts, **cfg, device="cpu").upscale_batch(crop)
+        else:
+            got = entry(crop)
+            ctabs = ens.prepare_expanded_luts(luts, interval=interval,
+                                              shared_quad=True, device="cpu")
+            c = torch.from_numpy(np.ascontiguousarray(
+                crop.transpose(0, 3, 1, 2)))
+            ref = tk.unpack_u32(tk.lut_cascade_packed(ctabs, c, **cfg),
+                                c.shape[:-2], CROP_H, CROP_W,
+                                scale).transpose(0, 2, 3, 1)
+            del ctabs
+        if not np.array_equal(got, ref):
+            raise RuntimeError(f"{label}: crop {crop.shape}: "
+                               f"{int((got != ref).sum())} bytes differ from "
+                               "the CPU path")
+        print(f"{label}: crop {crop.shape} byte-equal to the port's CPU "
+              f"path ({time.perf_counter() - t0:.1f} s with the CPU build)")
+
+        # timings
+        dev_ms = _cuda_ms(torch, cascade, 5)
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            entry(imgs)
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        mpix = mpix_per * scale * scale
+        k1, _ = _window_timings(torch, tk, wf_calls, labels, label)
+        print(f"{label}: cascade on the card (CUDA events) {dev_ms:.3f} ms "
+              f"per batch = {mpix / dev_ms * 1e3:.2f} MPix/s; its K1 calls "
+              f"{k1['ms']:.3f} ms"
+              + (f", K2 {k2['ms']:.3f} ms" if k2 else "")
+              + f", the rest (torch glue: pads, un-shift adds, stage mixes"
+              + (", interleave" if not packed else "") + ", launches) "
+              f"{dev_ms - k1['ms'] - (k2['ms'] if k2 else 0.0):.3f} ms")
+        print(f"{label}: {'upscale_batch' if ev else 'lut_cascade_packed'}"
+              f" (host clock, H2D + D2H included) {host_ms:.3f} ms per "
+              f"batch = {mpix / host_ms * 1e3:.2f} MPix/s (first call "
+              f"{first_s * 1e3:.1f} ms)")
+        if card and not packed:
+            _profile(torch, cascade, dev_ms, top=10, what=f"{label} cascade")
+        entries.append({
+            "name": f"window_fold_contract_{label.replace('-', '_')}",
+            "route": "cuda", "source": SOURCE_K1W, "replaces": REPLACES_K1,
+            "launches": launches["window_fold_contract"],
+            "max_abs_err": wf_err,
+            "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+            "bound_ms": k1["bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
+        if label == "x4-sdyeho":
+            entries.append({
+                "name": "tail_assemble_x4_sdyeho", "route": "cuda",
+                "source": SOURCE_K2, "replaces": REPLACES_K2,
+                "launches": launches["tail_assemble"], "max_abs_err": k2_err,
+                "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+                "bound_ms": k2["bound_ms"], "bound_by": "bytes",
+                "library_ms": None})
+        if label == "x4-rank":
+            _lut_yuv(torch, tk, lut3, imgs, crop, dev)
+        del ev, tabs, wf_calls
+        torch.cuda.empty_cache()
+
+    b = _boundary_timings(torch, tk, boundary)
+    entries.append({
+        "name": "gather_fold_contract_rank", "route": "cuda",
+        "source": SOURCE_K1, "replaces": REPLACES_K1,
+        "launches": boundary_launches, "max_abs_err": boundary_err,
+        "ms": b["ms"], "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"], "bound_by": "bytes",
+        "library_ms": b["library_ms"]})
+    del boundary
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _lut_yuv(torch, tk, luts, imgs, crop, dev):
+    """`LutEvaluator.upscale_yuv_batch` on phase 3's LUTs (x4 sdy, the
+    packed path): launches counted on the batch, the crop card vs CPU,
+    host ms."""
+    from mulut_tpu_torch.pipelines.evaluate import LutEvaluator
+
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE, interval=INTERVAL)
+    ev = LutEvaluator(luts, **cfg, device=dev)
+    want = {"gather_fold_contract": 0, "window_fold_contract": 6,
+            "tail_assemble": 1}
+    _reset(tk.LAUNCHES)
+    out = ev.upscale_yuv_batch(imgs)
+    launches = dict(tk.LAUNCHES)
+    print(f"upscale_yuv_batch: {imgs.shape} -> {out.shape} {out.dtype}, "
+          f"launches {launches}")
+    if ((dev.type == "cuda" and launches != want)
+            or out.shape != (BATCH, H * SCALE, W * SCALE, 3)):
+        raise RuntimeError(f"upscale_yuv_batch: launches {launches}, "
+                           f"expected {want}; output {out.shape}")
+    got = ev.upscale_yuv_batch(crop)
+    ref = LutEvaluator(luts, **cfg, device="cpu").upscale_yuv_batch(crop)
+    if not np.array_equal(got, ref):
+        raise RuntimeError(f"upscale_yuv_batch crop: {int((got != ref).sum())}"
+                           " bytes differ from the CPU path")
+    print(f"upscale_yuv_batch: crop {crop.shape} byte-equal to the CPU path")
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ev.upscale_yuv_batch(imgs)
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    mpix = BATCH * H * SCALE * W * SCALE / 1e6
+    print(f"upscale_yuv_batch (host clock, H2D + D2H included): {ms:.3f} ms "
+          f"per batch = {mpix / ms * 1e3:.2f} MPix/s")
+
+
 def _phase_only(phase) -> int:
-    """`--training` and `--nf256`: the card, the kernel build (with
-    ptxas's report for `--nf256`) and phase 13 or 14 alone."""
+    """`--training`, `--nf256` and `--lut-rank`: the card, the kernel build
+    (with ptxas's report for `--nf256` and `--lut-rank`) and phase 13, 14
+    or 15 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2976,6 +3358,10 @@ def _phase_only(phase) -> int:
         np.uint8)
     if phase == "training":
         _training_half(torch, tk, imgs)
+    elif phase == "lut-rank":
+        _ptxas_report({k: v for k, v in logs.items()
+                       if k in ("window_fold", "fold_contract")})
+        print(json.dumps({"kernels": _lut_rank(torch, tk, imgs)}))
     else:
         _ptxas_report({k: v for k, v in logs.items()
                        if k.startswith("plain_") and k != "plain_w8a8"})
@@ -2990,7 +3376,7 @@ if __name__ == "__main__":
         sys.exit(_ab(ab[sys.argv[1]], sys.argv[2:]))
     if sys.argv[1:2] == ["--sass"]:
         sys.exit(_sass(sys.argv[2:]))
-    if sys.argv[1:2] in (["--training"], ["--nf256"]):
+    if sys.argv[1:2] in (["--training"], ["--nf256"], ["--lut-rank"]):
         sys.exit(_phase_only(sys.argv[1][2:]))
     if sys.argv[1:2] == ["--ab-one"]:
         one = {"plain": _plain_ab_one, "w8a8": _w8a8_ab_one}[sys.argv[2]]

@@ -1,4 +1,5 @@
-"""Rotation ensemble, exact integer stage mix and the cascade's table build.
+"""Rotation ensemble, exact integer stage mix, the cascade's table build and
+the integer cascade.
 
 The reference accumulates the four rotations and all sampling modes in
 float64 and rounds with NumPy banker's rounding (ref: sr/4_test_lut.py:
@@ -8,8 +9,16 @@ round-half-to-even.  The rotation ensemble runs in tap-offset space: each
 rotation r reads the same all-sides edge-padded image through rotated tap
 offsets (`taps.rotated_taps`) instead of rotating the image.
 
-Torch twin of the parts of `mulut_tpu.ops.ensemble` that the packed
-cascade (`tail_kernel.lut_cascade_packed`) runs.
+Every contraction over an expanded table (16-corner, folded, rank, per
+rotation) runs the window-read simplex contraction
+(`tail_kernel.window_fold_contract`, K1), which launches its CUDA kernel
+on the card and runs its plain torch version on the CPU; only the
+reference engine over raw (L**4, v) tables (`expanded=False`) is torch
+arithmetic.  The rotation un-shifts, stage mixes and the PixelShuffle
+interleave are torch ops.
+
+Torch twin of `mulut_tpu.ops.ensemble` (without `lut_cascade_banded` and
+the disk cache).
 """
 
 from __future__ import annotations
@@ -18,22 +27,28 @@ import numpy as np
 import torch
 
 from . import simplex_tables
-from .simplex import simplex_planes_quad_int
-from .taps import TAPS, fold_geometry, lane_rotation_perm, mode_pad, rotated_taps
+from . import tail_kernel as tk
+from .simplex import _interleave, simplex_planes_int
+from .taps import (
+    TAPS,
+    fold_geometry,
+    lane_rotation_perm,
+    mode_pad,
+    mode_taps,
+    rotated_taps,
+)
 
-# Table format per mode, as `mulut_tpu.pipelines.evaluate.LutEvaluator`
-# builds them for its kernel path (`prepare_expanded_luts(shared_quad=True,
-# corner16_modes="y", fold16_modes="sd", k128_stage1="sd",
-# int8_stage1="y")`):
-#   final stage, non-symmetric: shared un-permuted (L**4, 16*v) rows;
-#   final stage, symmetric: rotation-folded (L**4, 64*v) rows, lane
-#     un-rotation baked in;
-#   inner stage, symmetric: (L**4, 128) corner-major 8-lane groups;
-#   inner stage, non-symmetric: (L**4, 16) int8 rows.
-CORNER16_MODES = "y"
-FOLD16_MODES = "sd"
-K128_STAGE1 = "sd"
-INT8_STAGE1 = "y"
+#: The table formats `LutEvaluator` builds for its packed x4 cascade, the
+#: flags the JAX package's evaluator passes for its kernel path
+#: (`mulut_tpu/pipelines/evaluate.py:103-110`):
+#:   final stage, y: shared un-permuted 16-corner (L**4, 16*v) rows;
+#:   final stage, s/d: rotation-folded 16-corner (L**4, 64*v) rows;
+#:   final stage, e: rank-folded rows; h/o: one shared rank table;
+#:   inner stage, s/d: (L**4, 128) corner-major 8-lane groups;
+#:   inner stage, y: (L**4, 16) int8 rows; e: (L**4, 64) folded rows;
+#:   h/o: (L**4, 16) int32 rows.
+KERNEL_FORMATS = dict(shared_quad=True, corner16_modes="y",
+                      fold16_modes="sd", k128_stage1="sd", int8_stage1="y")
 
 
 def round_half_even_div(n: torch.Tensor, d: int) -> torch.Tensor:
@@ -72,35 +87,225 @@ def _pad_all(img: torch.Tensor, pad: int) -> torch.Tensor:
     return _edge_pad(img, (pad, pad), (pad, pad))
 
 
-def rotation_ensemble_lanes_quad_int(lut, img, *, mode: str, upscale: int,
-                                     interval: int):
-    """4-rotation ensemble of a non-symmetric mode on an inner (v == 1)
-    stage, rotation-summed.
+def _quad_sum(lut, img, *, mode: str, v: int, interval: int):
+    """The four rotations of a mode, each through its rotated taps from the
+    all-sides padded image, contracted in one launch and summed: (..., H,
+    W, v) int32.  `lut` is shared by the rotations or stacked per
+    rotation (`window_fold_contract`'s formats)."""
+    pad = mode_pad(mode)
+    h, w = img.shape[-2], img.shape[-1]
+    xp = _pad_all(img, pad)
+    out = tk.window_fold_contract(
+        lut, tk._plane(xp), taps=[rotated_taps(mode, r) for r in range(4)],
+        origin=(pad, pad), grid=(h, w), interval=interval, u=v)
+    if v == 1:
+        return out.reshape(img.shape + (1,))
+    # integer-valued float32 below 2**24: the rotation sum is exact
+    acc = out[:, :, : out.shape[-1] - 8].sum(0)
+    return acc.to(torch.int32).T.reshape(img.shape + (v,))
+
+
+def rotation_ensemble_lanes_int(lut, img, *, mode: str, upscale: int,
+                                interval: int, expanded: bool = False):
+    """Sum over 4 rotations in fused tap-offset form.
 
     Args:
-      lut: (L**4, 16) expanded table shared by all four rotations (at
-        v == 1 there is no output-lane permutation).
+      lut: (L**4, v) int32 table, or with expanded=True a corner-expanded
+        int8 table (`simplex_tables.expand_lut`): (L**4, 16 * v) shared by
+        the rotations, or (4, L**4, 16 * v) per-rotation copies with the
+        lane un-rotation baked in (`prepare_expanded_luts`).
       img: (..., H, W) int32, unpadded.
 
     Returns:
-      (..., H, W, 1) int32 accumulator (q x reference float).
+      (..., H, W, upscale**2) int32 lane accumulator (q x reference float),
+      lanes already un-rotated — interleave once to get pixels.
     """
-    if upscale != 1:
-        raise NotImplementedError(
-            "wide (v > 1) quad stages run through tail_kernel.quad_flat; "
-            "the XLA-twin cascade (lut_cascade_int) is a later slice")
+    v = upscale * upscale
+    if expanded:
+        return _quad_sum(lut, img, mode=mode, v=v, interval=interval)
     pad = mode_pad(mode)
     xp = _pad_all(img, pad)
     h, w = img.shape[-2], img.shape[-1]
-    planes4 = [
-        [
-            xp[..., pad + dy: pad + dy + h, pad + dx: pad + dx + w]
-            for dy, dx in rotated_taps(mode, r)
-        ]
-        for r in range(4)
-    ]
-    return simplex_planes_quad_int([lut] * 4, planes4, v=1,
-                                   interval=interval)
+    acc = None
+    for r in range(4):
+        planes = [xp[..., pad + dy: pad + dy + h, pad + dx: pad + dx + w]
+                  for dy, dx in rotated_taps(mode, r)]
+        out = simplex_planes_int(lut, planes, interval=interval)
+        if upscale > 1 and r:
+            out = out[..., torch.as_tensor(lane_rotation_perm(upscale, r),
+                                           device=out.device)]
+        acc = out if acc is None else acc + out
+    return acc
+
+
+def rotation_ensemble_lanes_quad_int(lut, img, *, mode: str, upscale: int,
+                                     interval: int, fused: bool = True,
+                                     rank: bool = False):
+    """4-rotation ensemble of a non-symmetric mode, rotation-summed.
+
+    `lut` is a 16-corner (L**4, 16 * v) table or a rank (L**4 * 24, 5 * v)
+    table (`simplex_tables.rank_expand_shared`), shared by the rotations;
+    or four of either stacked per rotation (`rank_expand_rotations`, the
+    16-corner per-rotation copies); at v == 1 the (L**4, 16) int8 or int32
+    inner-stage table.  One window contraction reads all four rotations.
+    `fused` and `rank` are the JAX signature's and have no effect here:
+    `fused` picks a TPU layout there, and the contraction reads the
+    table's format from its shape.  Returns (..., H, W, v) int32.
+    """
+    v = upscale * upscale
+    return _quad_sum(lut, img, mode=mode, v=v, interval=interval)
+
+
+def rotation_ensemble_lanes_folded_int(flut, img, *, mode: str, upscale: int,
+                                       interval: int, fused: bool = True,
+                                       rank: bool = False):
+    """All 4 rotations of a symmetric-pattern mode (s, d, e) in one gather
+    per pixel.
+
+    `flut` is a rotation-folded table: `simplex_tables.fold_lut` rows
+    (L**4, 64 * v), or `rank_fold_lut` rows (L**4 * 24, >= 20 * v).  Each
+    rotation reads the shared 4-pixel window at a static shift, so one
+    contraction runs over the extended plane of every window origin a
+    rotation needs, and the rotations' lane blocks are summed through
+    static un-shift slices.  `fused` and `rank` are the JAX signature's
+    and have no effect here: the contraction reads the table's format from
+    its shape.  Returns (..., H, W, v) int32.
+    """
+    geo = fold_geometry(mode)
+    pad = mode_pad(mode)
+    v = upscale * upscale
+    h, w = img.shape[-2], img.shape[-1]
+    my = -min(s[0] for s, _ in geo)
+    mx = -min(s[1] for s, _ in geo)
+    he, we = h + my, w + mx
+    xp = _pad_all(img, pad)
+    ext = tk.window_fold_contract(
+        flut, tk._plane(xp), taps=(mode_taps(mode),),
+        origin=(pad - my, pad - mx), grid=(he, we), interval=interval,
+        u=4 * v)[0]
+    lead = tuple(img.shape[:-2])
+    ext = ext[:, : ext.shape[-1] - 8].reshape((4, v) + lead + (he, we))
+    acc = None
+    for r, ((sy, sx), _) in enumerate(geo):
+        oy, ox = sy + my, sx + mx
+        piece = ext[r, ..., oy: oy + h, ox: ox + w]
+        acc = piece if acc is None else acc + piece
+    return torch.movedim(acc, 0, -1).to(torch.int32)
+
+
+def prepare_expanded_luts(luts: dict, *, interval: int = 4,
+                          rank: bool = True,
+                          shared_quad: bool = False,
+                          corner16_modes: str = "",
+                          fold16_modes: str = "",
+                          k128_stage1: str = "",
+                          int8_stage1: str = "",
+                          device=None) -> dict:
+    """Corner-expanded tables, rotation-folded where legal, per
+    "s{stage}_{mode}" key (ref: sr/4_test_lut.py:323-333).
+
+    `luts` holds the source (L**4, v) tables (any integer dtype, values in
+    int8 range).  Per key, as `mulut_tpu`'s `prepare_expanded_luts`:
+
+      * symmetric modes (s, d, e), v > 1: rank-folded rows
+        (`simplex_tables.rank_fold_lut`, (L**4 * 24, tile-padded 20 * v)),
+        the lane un-rotation baked in per rotation block — or, for modes in
+        `fold16_modes` or without `rank` or at interval < 4, 16-corner
+        folded rows (`fold_lut`, (L**4, 64 * v));
+      * symmetric modes, v == 1: `fold_lut` rows (L**4, 64);
+      * non-symmetric modes (y, h, o), v > 1: per-rotation rank tables
+        (4, L**4 * 24, 5 * v), or with `shared_quad` one shared
+        un-permuted rank table (L**4 * 24, 5 * v); without rank, per-rotation
+        16-corner copies (4, L**4, 16 * v);
+      * non-symmetric modes, v == 1: (L**4, 16) int32, or int8 for modes in
+        `int8_stage1`;
+      * `corner16_modes` (with `shared_quad`), v > 1: one shared
+        un-permuted 16-corner table (L**4, 16 * v);
+      * `k128_stage1`, v == 1: (L**4, 128) int8, corner m's (rotation)
+        values in lanes [m*8, m*8+4) (non-symmetric: lane m*8), zeros
+        elsewhere.
+
+    Rank tables need L <= 17 (interval >= 4).  Keys whose mode is not a
+    sampling mode get the generic per-rotation formats.  With
+    `device=None` the tables are built on the host with NumPy and returned
+    as NumPy arrays; otherwise they are built on that torch device from
+    the small source LUTs (the `simplex_tables.*_device` twins) and
+    returned as tensors.  Both are byte-equal to the JAX package's.
+    """
+    if device is None:
+        def src(a):
+            return a
+        expand, fold = simplex_tables.expand_lut, simplex_tables.fold_lut
+        rank_fold = simplex_tables.rank_fold_lut
+        rank_shared = simplex_tables.rank_expand_shared
+        rank_rot = simplex_tables.rank_expand_rotations
+    else:
+        def src(a):
+            return torch.as_tensor(a, device=device)
+        expand = simplex_tables.expand_lut_device
+        fold = simplex_tables.fold_lut_device
+        rank_fold = simplex_tables.rank_fold_lut_device
+        rank_shared = simplex_tables.rank_expand_shared_device
+        rank_rot = simplex_tables.rank_expand_rotations_device
+    L = 2 ** (8 - interval) + 1
+    out = {}
+    for key, lut in luts.items():
+        arr = np.asarray(lut).astype(np.int8)
+        mode = key.rsplit("_", 1)[-1]
+        geo = fold_geometry(mode) if mode in TAPS else None
+        v = arr.shape[1] if arr.ndim == 2 else 1
+        up = int(round(v ** 0.5))
+        use_rank = rank and v > 1 and L <= 17 and mode not in fold16_modes
+        perms = [lane_rotation_perm(up, r) for r in range(4)]
+        a8 = src(arr)
+        if shared_quad and v > 1 and mode in corner16_modes:
+            t = expand(a8, interval).reshape(-1, 16 * v)
+        elif v == 1 and mode in k128_stage1:
+            # corner m's values in lane group [m*8, m*8+8): the group-fold
+            # contraction's (C=16, u=8) rows
+            if geo is not None:
+                f = fold(a8, geo, None, interval).reshape(-1, 16, 4)
+            else:
+                f = expand(a8, interval).reshape(-1, 16, 1)
+            if device is None:
+                t = np.pad(f, ((0, 0), (0, 0), (0, 8 - f.shape[2])))
+            else:
+                t = torch.zeros(f.shape[:2] + (8,), dtype=f.dtype,
+                                device=f.device)
+                t[..., :f.shape[2]] = f
+            t = t.reshape(-1, 128)
+        elif geo is not None:
+            build = rank_fold if use_rank else fold
+            t = build(a8, geo, perms if v > 1 else None, interval)
+        elif use_rank:
+            t = (rank_shared(a8, interval) if shared_quad
+                 else rank_rot(a8, perms, interval))
+        else:
+            e = expand(a8, interval)
+            if v == 1:
+                t = e.reshape(-1, 16)
+                if mode not in int8_stage1:
+                    t = (t.astype(np.int32) if device is None
+                         else t.to(torch.int32))
+            elif device is None:
+                t = np.stack([e[:, :, p].reshape(e.shape[0], -1)
+                              for p in perms])
+            else:
+                t = torch.stack([
+                    e.index_select(2, torch.as_tensor(p, device=device))
+                    .reshape(e.shape[0], -1) for p in perms])
+        out[key] = t
+    return out
+
+
+def rotation_ensemble_int(lut, img, *, mode: str, upscale: int,
+                          interval: int):
+    """Sum of the 4 rotated simplex-interp passes, spatially interleaved:
+    the reference's rot90 -> pad -> interp -> rot90-back loop (ref:
+    sr/4_test_lut.py:293-298) without rotating any image."""
+    acc = rotation_ensemble_lanes_int(lut, img, mode=mode, upscale=upscale,
+                                      interval=interval)
+    return _interleave(acc, upscale)
 
 
 def clamp_pad_region(img: torch.Tensor, valid_hw) -> torch.Tensor:
@@ -130,70 +335,55 @@ def clamp_pad_region(img: torch.Tensor, valid_hw) -> torch.Tensor:
     return torch.gather(img, -1, cols.expand(img.shape))
 
 
-def _table_format(key: str, v: int) -> str:
-    mode = key.rsplit("_", 1)[-1]
-    symmetric = mode in TAPS and fold_geometry(mode) is not None
-    if v > 1 and mode in CORNER16_MODES:
-        return "corner16"
-    if v > 1 and symmetric and mode in FOLD16_MODES:
-        return "fold16"
-    if v == 1 and symmetric and mode in K128_STAGE1:
-        return "k128"
-    if v == 1 and not symmetric and mode in INT8_STAGE1:
-        return "int8"
-    raise NotImplementedError(
-        f"table {key!r} (v={v}): only the s/d/y formats of the packed "
-        "cascade are ported; the rank-expanded and per-rotation formats "
-        "(other modes) come with lut_cascade_int in a later slice")
+def lut_cascade_int(luts: dict, img, *, stages: int, modes: str, scale: int,
+                    interval: int = 4, expanded: bool = False,
+                    fused: bool = True, valid_hw=None):
+    """Full multi-stage x multi-mode x rotation-ensemble LUT cascade.
 
+    Args:
+      luts: {"s{stage}_{mode}": (L**4, v) int32 tensor} with v = scale**2
+        for the last stage and 1 otherwise (ref: sr/4_test_lut.py:323-333);
+        with expanded=True, `prepare_expanded_luts` tables instead (their
+        formats are recognized by shape).
+      img: (..., H, W) integer in [0, 255]; channels ride the leading dims.
+      fused: the JAX signature's TPU layout choice; no effect here.
+      valid_hw: optional (h, w) scalars or (B,) vectors for bucketed
+        evaluation; the pad region is re-synchronized to edge replicas of
+        the valid region before every stage (`clamp_pad_region`).
 
-def prepare_expanded_luts(luts: dict, *, interval: int = 4,
-                          device=None) -> dict:
-    """Expanded int8 tables of the packed cascade, per "s{stage}_{mode}".
-
-    `luts` holds the source (L**4, v) tables (any integer dtype, values in
-    int8 range).  With `device=None` the tables are built on the host with
-    NumPy and returned as NumPy arrays; otherwise they are built ON that
-    torch device from the small source LUTs (every format is a gather or
-    permutation: the `simplex_tables.*_device` twins) and returned as
-    tensors.  Both routes are byte-equal to `mulut_tpu`'s
-    `prepare_expanded_luts` with the evaluator's kernel-path formats (see
-    the module constants).
+    Returns:
+      (..., H*scale, W*scale) int32 in [0, 255], byte-identical to the
+      reference NumPy engine (ref: sr/4_test_lut.py:263-306).
     """
-    out = {}
-    for key, lut in luts.items():
-        arr = np.asarray(lut).astype(np.int8)
-        v = arr.shape[1] if arr.ndim == 2 else 1
-        up = int(round(v ** 0.5))
-        fmt = _table_format(key, v)
-        geo = fold_geometry(key.rsplit("_", 1)[-1])
-        if device is None:
-            expand, fold, a8 = (simplex_tables.expand_lut,
-                                simplex_tables.fold_lut, arr)
-        else:
-            expand, fold = (simplex_tables.expand_lut_device,
-                            simplex_tables.fold_lut_device)
-            a8 = torch.as_tensor(arr, device=device)
-        if fmt == "corner16":
-            t = expand(a8, interval).reshape(-1, 16 * v)
-        elif fmt == "fold16":
-            perms = [lane_rotation_perm(up, r) for r in range(4)]
-            t = fold(a8, geo, perms, interval)
-        elif fmt == "k128":
-            # corner m's four rotation values in lanes [m*8, m*8+4), zeros
-            # in [m*8+4, m*8+8): the group-fold kernel's (C=16, u=8) rows
-            f = fold(a8, geo, None, interval).reshape(-1, 16, 4)
-            if device is None:
-                t = np.pad(f, ((0, 0), (0, 0), (0, 4)))
+    q = 2 ** interval
+    L4 = (2 ** (8 - interval) + 1) ** 4
+    x = img.to(torch.int32)
+    for s in range(stages):
+        if valid_hw is not None:
+            x = clamp_pad_region(x, valid_hw)
+        last = s + 1 == stages
+        upscale = scale if last else 1
+        avg_factor = len(modes) if last else len(modes) * 4
+        bias = 0 if last else 127
+        v = upscale * upscale
+        acc = None
+        for mode in modes:
+            lut = luts[f"s{s + 1}_{mode}"]
+            kw = dict(mode=mode, upscale=upscale, interval=interval)
+            # folded rows: 16-corner (L**4, 64 * v) or rank (24 * L**4, .)
+            if (expanded and lut.dim() == 2
+                    and (lut.shape[0] == L4 * 24 or lut.shape[1] == 64 * v)
+                    and fold_geometry(mode) is not None):
+                out = rotation_ensemble_lanes_folded_int(lut, x, **kw)
+            elif expanded and (lut.dim() == 3 or lut.shape[1] == 16):
+                out = rotation_ensemble_lanes_quad_int(lut, x, **kw)
             else:
-                t = torch.zeros(f.shape[:2] + (8,), dtype=f.dtype,
-                                device=f.device)
-                t[..., :4] = f
-            t = t.reshape(-1, 128)
-        else:  # int8
-            t = expand(a8, interval).reshape(-1, 16)
-        out[key] = t
-    return out
+                out = rotation_ensemble_lanes_int(lut, x, expanded=expanded,
+                                                  **kw)
+            acc = out if acc is None else acc + out
+        mixed = stage_mix(acc, q=q, avg_factor=avg_factor, bias=bias)
+        x = _interleave(mixed, upscale) if upscale > 1 else mixed[..., 0]
+    return x
 
 
 def tables_from_numpy(tabs: dict, device) -> dict:

@@ -142,6 +142,217 @@ def simplex_planes_quad_int(luts4, planes4, *, v: int, interval: int = 4):
     return out.to(torch.int32).reshape(*lead, v)
 
 
+def _take_clip(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of `table` at `idx`, clamped into range (`jnp.take(...,
+    mode="clip")`)."""
+    return table.index_select(0, idx.clamp(0, table.shape[0] - 1))
+
+
+def _lehmer_code(fa, fb, fc, fd):
+    """Bijective 0..23 code of the descending fraction-rank permutation.
+
+    Must match `simplex_tables.lehmer_of_ranks` (the rank tables' row
+    order); ranks carry the reference's tie-breaking via `_fraction_ranks`.
+    """
+    ra, rb, rc, rd = _fraction_ranks(fa, fb, fc, fd)
+    l2 = rb - (rb > ra).to(torch.int32)
+    l3 = rc - (rc > ra).to(torch.int32) - (rc > rb).to(torch.int32)
+    return ra * 6 + l2 * 2 + l3
+
+
+def sorted_weights(fa, fb, fc, fd, *, interval: int = 4) -> torch.Tensor:
+    """The 5 simplex weights in rank order, (..., 5) float32:
+    (q - s0, s0 - s1, s1 - s2, s2 - s3, s3) over the descending-sorted
+    fractions, the weight multiset of every one of the reference's 24
+    branches (ref: sr/4_test_lut.py:148-231)."""
+    return torch.movedim(sorted_weights_t(fa, fb, fc, fd, interval=interval),
+                         0, -1)
+
+
+def sorted_weights_t(fa, fb, fc, fd, *, interval: int = 4) -> torch.Tensor:
+    """`sorted_weights` with the weight axis first: (5, *fa.shape)."""
+    q = 2 ** interval
+    s0, s1, s2, s3 = _sorted_fractions(fa, fb, fc, fd)
+    return torch.stack([q - s0, s0 - s1, s1 - s2, s2 - s3, s3]).to(
+        torch.float32)
+
+
+def simplex_planes_int(lut, planes, *, interval: int = 4):
+    """Exact integer 4-D simplex interpolation over four tap planes, from
+    the raw table: five corner gathers per site, picked by the 6-bit
+    comparison code (`simplex_tables.corner_offsets`).
+
+    Args:
+      lut: (L**4, v) int32 table (int8 values widened).
+      planes: four (..., h, w) int32 tensors in [0, 255].
+
+    Returns:
+      (..., h, w, v) int32 accumulator (q x the reference's float output),
+      lanes not interleaved.
+    """
+    q = 2 ** interval
+    L = 2 ** (8 - interval) + 1
+    a, b, c, d = planes
+    fa, fb, fc, fd = a % q, b % q, c % q, d % q
+    base = (((a // q) * L + b // q) * L + c // q) * L + d // q
+    offs_t, _ = _tables(L)
+    offs = torch.as_tensor(offs_t, device=base.device)[
+        _comparison_code(fa, fb, fc, fd)]                 # (..., h, w, 5)
+    s0, s1, s2, s3 = _sorted_fractions(fa, fb, fc, fd)
+    weights = (q - s0, s0 - s1, s1 - s2, s2 - s3, s3)
+    v = lut.shape[1]
+    out = None
+    for k in range(5):
+        idx = (base + offs[..., k]).reshape(-1)
+        rows = lut.index_select(0, idx).reshape(*base.shape, v)
+        term = weights[k][..., None] * rows
+        out = term if out is None else out + term
+    return out
+
+
+def _contract_rows(lam, g, terms: int, width: int):
+    """sum_k lam[n, k] * g[n, k*width + j] in float32 (integer values below
+    2**24: exact in any order) -> (N, width) int32."""
+    g = g.reshape(-1, terms, width).to(torch.float32)
+    return torch.einsum("nk,nkv->nv", lam, g).to(torch.int32)
+
+
+def simplex_planes_expanded_int(elut, planes, *, v: int, interval: int = 4):
+    """Single-gather integer simplex interpolation over a corner-expanded
+    (L**4, 16 * v) int8 table (`simplex_tables.expand_lut`): the five
+    simplex corners are picked out of the 16 by `corner_lams`.
+
+    Returns (..., h, w, v) int32 accumulator (q x the reference's float
+    output).
+    """
+    lead = planes[0].shape
+    base, fr = _base_and_fracs(planes, interval=interval)
+    lam = corner_lams(*fr, interval=interval)            # (N, 16)
+    out = _contract_rows(lam, _take_clip(elut, base), 16, v)
+    return out.reshape(*lead, v)
+
+
+def simplex_planes_folded_int(flut, planes, *, v: int, interval: int = 4):
+    """Rotation-folded single-gather simplex interpolation over a
+    (L**4, 16 * 4 * v) table (`simplex_tables.fold_lut`): the four
+    rotations of a 90-degree-symmetric tap pattern share one gather and
+    one weight computation.
+
+    Args:
+      planes: four (..., h, w) int32 rotation-0 tap planes over the
+        extended window range (see
+        `ensemble.rotation_ensemble_lanes_folded_int`).
+
+    Returns:
+      (..., h, w, 4, v) int32 per-rotation accumulators; rotation r's
+      plane still needs its static spatial un-shift before summing.
+    """
+    lead = planes[0].shape
+    base, fr = _base_and_fracs(planes, interval=interval)
+    lam = corner_lams(*fr, interval=interval)            # (N, 16)
+    out = _contract_rows(lam, _take_clip(flut, base), 16, 4 * v)
+    return out.reshape(*lead, 4, v)
+
+
+def _rank_rows(rtab, fr):
+    """Rows of a rank-expanded table at `lehmer(ranks) * L**4 + base`."""
+    return _lehmer_code(*fr) * (rtab.shape[0] // 24)
+
+
+def simplex_planes_rank_folded_int(rflut, planes, *, v: int,
+                                   interval: int = 4):
+    """Rank-expanded rotation-folded interpolation over
+    `simplex_tables.rank_fold_lut` rows: the row at
+    `lehmer(ranks) * L**4 + base` holds the 5 simplex-chain corners of all
+    4 rotations (zero term blocks may pad it), contracted with the
+    sorted-difference weights.
+
+    Returns (..., h, w, 4, v) int32 per-rotation accumulators.
+    """
+    lead = planes[0].shape
+    terms = rflut.shape[1] // (4 * v)  # >= 5: rows may be tile-padded
+    base, fr = _base_and_fracs(planes, interval=interval)
+    lam = torch.nn.functional.pad(sorted_weights(*fr, interval=interval),
+                                  (0, terms - 5))
+    g = _take_clip(rflut, _rank_rows(rflut, fr) + base)
+    return _contract_rows(lam, g, terms, 4 * v).reshape(*lead, 4, v)
+
+
+def simplex_planes_rank_quad_int(rluts4, planes4, *, v: int,
+                                 interval: int = 4):
+    """Rank-expanded per-rotation interpolation for non-symmetric modes:
+    each rotation gathers with its own base and rank code from its own
+    (L**4 * 24, 5 * v) table; the rotation sum happens in the accumulator.
+    Returns (..., h, w, v) int32."""
+    lead = planes4[0][0].shape
+    out = None
+    for r in range(4):
+        base, fr = _base_and_fracs(planes4[r], interval=interval)
+        lam = sorted_weights(*fr, interval=interval)
+        g = _take_clip(rluts4[r], _rank_rows(rluts4[r], fr) + base)
+        o = _contract_rows(lam, g, 5, v)
+        out = o if out is None else out + o
+    return out.reshape(*lead, v)
+
+
+def simplex_interp_int(lut, img, *, mode: str, upscale: int,
+                       interval: int = 4):
+    """Single-pattern integer simplex interpolation on a padded image.
+
+    Args:
+      lut: (L**4, upscale**2) int32 table (int8 values widened).
+      img: (..., h + pad, w + pad) int32 image in [0, 255], already
+        replicate-padded on the bottom/right by `mode_pad(mode)`.
+
+    Returns:
+      (..., h*upscale, w*upscale) int32 accumulator (q x the reference's
+      float output).
+    """
+    pad = mode_pad(mode)
+    h = img.shape[-2] - pad
+    w = img.shape[-1] - pad
+    planes = _tap_planes(img, mode, h, w)
+    out = simplex_planes_int(lut, planes, interval=interval)
+    return _interleave(out, upscale)
+
+
+def reference_oracle_int(lut, img, *, mode: str, upscale: int,
+                         interval: int = 4):
+    """Slow, independent NumPy oracle used only by tests: per pixel, the
+    strict-comparison decision chain through the host tables and the five
+    weighted corners, in Python loops."""
+    q = 2 ** interval
+    L = 2 ** (8 - interval) + 1
+    pad = mode_pad(mode)
+    h = img.shape[-2] - pad
+    w = img.shape[-1] - pad
+    taps = mode_taps(mode)
+    v = upscale * upscale
+    offs = simplex_tables.corner_offsets(L)
+    coeffs = simplex_tables.weight_coeffs()
+
+    lead = img.shape[:-2]
+    out = np.zeros(lead + (h, w, v), dtype=np.int64)
+    for index in np.ndindex(*lead):
+        for i in range(h):
+            for j in range(w):
+                px = [int(img[index + (i + dy, j + dx)]) for dy, dx in taps]
+                msb = [p // q for p in px]
+                f = [p % q for p in px]
+                basev = ((msb[0] * L + msb[1]) * L + msb[2]) * L + msb[3]
+                codev = simplex_tables.comparison_code(
+                    np.int64(f[0]), np.int64(f[1]), np.int64(f[2]),
+                    np.int64(f[3]))
+                wts = coeffs[codev] @ np.array([q] + f, dtype=np.int64)
+                acc = np.zeros(v, dtype=np.int64)
+                for k in range(5):
+                    acc += wts[k] * lut[basev + offs[codev, k]]
+                out[index + (i, j)] = acc
+    out = out.reshape(lead + (h, w, upscale, upscale))
+    out = np.moveaxis(out, -2, -3).reshape(lead + (h * upscale, w * upscale))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The differentiable path (STE fine-tuning)
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ The chain is replayed here once on the host for all 2**6 comparison codes
 The expanded tables are pure gathers/permutations of the source (L**4, v)
 int8 LUT.  Each builder has a NumPy form (host) and a torch twin
 (`*_device`) that builds the same bytes on the card from the small source
-LUT.  NumPy twin of `mulut_tpu.ops.simplex_tables` for the formats the
-packed cascade consumes (tests hold the two byte-equal).
+LUT, rank-expanded tables included.  NumPy twin of
+`mulut_tpu.ops.simplex_tables` (tests hold the two byte-equal).
 """
 
 from __future__ import annotations
@@ -252,3 +252,212 @@ def fold_lut_device(lut: torch.Tensor, geometry, lane_perms=None,
         blocks.append(er)
     folded = torch.stack(blocks, dim=2)  # (L**4, 16, 4, v)
     return folded.reshape(L ** 4, -1)
+
+
+# ---------------------------------------------------------------------------
+# Rank-expanded tables: 5 simplex-chain corners per row
+# ---------------------------------------------------------------------------
+
+
+def lehmer_of_ranks(ra, rb, rc, rd, xp=np):
+    """Bijective 0..23 code of the descending-rank permutation.
+
+    Works on scalars or arrays.  Must match `simplex._lehmer_code` (and the
+    kernel's code in csrc/window_fold.cu) exactly: the rank tables below
+    are indexed by this code.
+    """
+    l2 = rb - (rb > ra)
+    l3 = rc - (rc > ra) - (rc > rb)
+    del rd  # implied by the other three
+    return ra * 6 + l2 * 2 + l3
+
+
+def rank_chain_masks() -> np.ndarray:
+    """(24, 5) int corner masks of the simplex chain per Lehmer rank code.
+
+    For a pixel whose fractions have descending ranks (ra, rb, rc, rd)
+    (0 = largest; reference tie-break), the k-th simplex corner is the
+    hypercube mask of the k highest-ranked dimensions:
+    m_0 = 0000, m_k = m_{k-1} | bit(dim with rank k-1), m_4 = 1111
+    (ref: sr/4_test_lut.py:148-231 — each branch's corner chain).
+    """
+    import itertools
+
+    out = np.zeros((24, 5), dtype=np.int64)
+    bit = (8, 4, 2, 1)  # a, b, c, d
+    for ranks in itertools.permutations(range(4)):
+        p = int(lehmer_of_ranks(*ranks))
+        order = sorted(range(4), key=lambda x: ranks[x])  # dims by rank
+        m = 0
+        for k, dim in enumerate(order):
+            m |= bit[dim]
+            out[p, k + 1] = m
+    return out
+
+
+def _rank_pad(row: int, v: int) -> int:
+    """Padded row width of a rank-folded table: rows are padded to whole
+    128-byte tiles with zero term blocks when the term width 4v divides
+    128 (or 128 divides it), as the JAX package lays them out for the
+    TPU's gather."""
+    if row % 128 and (128 % (4 * v) == 0 or (4 * v) % 128 == 0):
+        return -(-row // 128) * 128
+    return row
+
+
+def rank_fold_lut(
+    lut: np.ndarray,
+    geometry,
+    lane_perms=None,
+    interval: int = 4,
+) -> np.ndarray:
+    """Rank-expanded rotation-folded table: 5 chain corners per row.
+
+    Rows are indexed rank-major, `lehmer(rank) * L**4 + base`: row p of
+    base n holds exactly the 5 simplex-chain corners (in rank order) of
+    every rotation, so the contraction is 5 multiply-adds with the
+    sorted-difference weights.  Rows are zero-padded to whole 128-byte
+    tiles where the term width 4v divides 128 (`_rank_pad`: 6 terms of 64
+    at v=16, 8 of 16 at v=4); consumers skip or zero-weight the padding.
+
+    Returns (L**4 * 24, padded 5 * 4 * v): column block [k][r][:] is chain
+    corner k of rotation r (k-major, matching `fold_lut`'s m-major layout).
+    """
+    L = 2 ** (8 - interval) + 1
+    v = lut.shape[1] if lut.ndim == 2 else 1
+    folded = fold_lut(lut, geometry, lane_perms, interval)
+    folded = folded.reshape(L ** 4, 16, 4 * v)
+    chains = rank_chain_masks()  # (24, 5)
+    out = np.ascontiguousarray(
+        folded[:, chains].transpose(1, 0, 2, 3)  # (24, L**4, 5, 4v)
+    )
+    row = 5 * 4 * v
+    out = out.reshape(L ** 4 * 24, row)
+    target = _rank_pad(row, v)
+    if target != row:
+        out = np.pad(out, ((0, 0), (0, target - row)))
+    return out
+
+
+def rank_expand_rotations(
+    lut: np.ndarray,
+    lane_perms=None,
+    interval: int = 4,
+) -> np.ndarray:
+    """Per-rotation rank-expanded tables for non-symmetric modes (y/h/o).
+
+    Each rotation gathers with its own base and rank code, so rotation r
+    gets its own (L**4 * 24, 5 * v) block with the output-lane un-rotation
+    `lane_perms[r]` pre-applied.  Rank-major row order.
+
+    Returns (4, L**4 * 24, 5 * v) with lut's dtype.
+    """
+    L = 2 ** (8 - interval) + 1
+    e = expand_lut(lut, interval)  # (L**4, 16, v)
+    v = e.shape[-1]
+    chains = rank_chain_masks()
+    ec = e[:, chains].transpose(1, 0, 2, 3)  # (24, L**4, 5, v)
+    rots = []
+    for r in range(4):
+        er = ec[..., lane_perms[r]] if lane_perms is not None else ec
+        rots.append(
+            np.ascontiguousarray(er).reshape(L ** 4 * 24, 5 * v)
+        )
+    return np.stack(rots)
+
+
+def rank_expand_shared(lut: np.ndarray, interval: int = 4) -> np.ndarray:
+    """ONE shared un-permuted rank-expanded table for all 4 rotations of a
+    non-symmetric mode (the consumer applies the lane un-rotation).
+    Rank-major row order.
+
+    Returns (L**4 * 24, 5 * v) with lut's dtype.
+    """
+    L = 2 ** (8 - interval) + 1
+    e = expand_lut(lut, interval)          # (L**4, 16, v)
+    v = e.shape[-1]
+    ec = e[:, rank_chain_masks()].transpose(1, 0, 2, 3)  # (24, L**4, 5, v)
+    return np.ascontiguousarray(ec).reshape(L ** 4 * 24, 5 * v)
+
+
+def expand_indices(interval: int = 4) -> np.ndarray:
+    """(L**4 * 16,) int32: row r*16 + m = flat(digits(r) + bits(m), clipped).
+
+    `table[expand_indices].reshape(L**4, 16*v)` equals `expand_lut(table)`.
+    """
+    L = 2 ** (8 - interval) + 1
+    idx = np.arange(L ** 4, dtype=np.int64)
+    digits = np.stack(
+        [idx // L ** 3 % L, idx // L ** 2 % L, idx // L % L, idx % L], axis=1
+    )
+    out = np.empty((L ** 4, 16), dtype=np.int32)
+    for m in range(16):
+        bits = np.array([(m >> 3) & 1, (m >> 2) & 1, (m >> 1) & 1, m & 1])
+        d = np.minimum(digits + bits, L - 1)
+        out[:, m] = ((d[:, 0] * L + d[:, 1]) * L + d[:, 2]) * L + d[:, 3]
+    return out.reshape(-1)
+
+
+def comparison_code(fa, fb, fc, fd, xp=np):
+    """6-bit code from the strict pairwise comparisons (host/NumPy helper)."""
+    return (
+        (fa > fb).astype(np.int32) * 32
+        + (fa > fc).astype(np.int32) * 16
+        + (fa > fd).astype(np.int32) * 8
+        + (fb > fc).astype(np.int32) * 4
+        + (fb > fd).astype(np.int32) * 2
+        + (fc > fd).astype(np.int32) * 1
+    )
+
+
+def _rank_pad_device(out: torch.Tensor, v: int) -> torch.Tensor:
+    row = out.shape[-1]
+    target = _rank_pad(row, v)
+    if target != row:
+        out = torch.nn.functional.pad(out, (0, target - row))
+    return out
+
+
+def _chains_device(device) -> torch.Tensor:
+    return torch.as_tensor(rank_chain_masks().reshape(-1), device=device)
+
+
+def rank_fold_lut_device(lut: torch.Tensor, geometry, lane_perms=None,
+                         interval: int = 4) -> torch.Tensor:
+    """Torch twin of `rank_fold_lut`: -> (L**4*24, padded 5*4*v), on lut's
+    device."""
+    L = 2 ** (8 - interval) + 1
+    v = lut.shape[1] if lut.ndim == 2 else 1
+    folded = fold_lut_device(lut, geometry, lane_perms, interval)
+    folded = folded.reshape(L ** 4, 16, 4 * v)
+    out = folded.index_select(1, _chains_device(lut.device))
+    out = out.reshape(L ** 4, 24, 5, 4 * v).transpose(0, 1)
+    return _rank_pad_device(out.reshape(L ** 4 * 24, 5 * 4 * v), v)
+
+
+def rank_expand_shared_device(lut: torch.Tensor,
+                              interval: int = 4) -> torch.Tensor:
+    """Torch twin of `rank_expand_shared`: -> (L**4*24, 5*v)."""
+    L = 2 ** (8 - interval) + 1
+    e = expand_lut_device(lut, interval)  # (L**4, 16, v)
+    v = e.shape[-1]
+    ec = e.index_select(1, _chains_device(lut.device))
+    ec = ec.reshape(L ** 4, 24, 5, v).transpose(0, 1)
+    return ec.reshape(L ** 4 * 24, 5 * v)
+
+
+def rank_expand_rotations_device(lut: torch.Tensor, lane_perms=None,
+                                 interval: int = 4) -> torch.Tensor:
+    """Torch twin of `rank_expand_rotations`: -> (4, L**4*24, 5*v)."""
+    L = 2 ** (8 - interval) + 1
+    e = expand_lut_device(lut, interval)
+    v = e.shape[-1]
+    ec = e.index_select(1, _chains_device(lut.device))
+    ec = ec.reshape(L ** 4, 24, 5, v).transpose(0, 1)   # (24, L**4, 5, v)
+    rots = []
+    for r in range(4):
+        er = (ec.index_select(3, torch.as_tensor(lane_perms[r],
+                                                 device=lut.device))
+              if lane_perms is not None else ec)
+        rots.append(er.reshape(L ** 4 * 24, 5 * v))
+    return torch.stack(rots)

@@ -1,9 +1,10 @@
 """The packed LUT cascade, with its CUDA kernels.
 
 Torch twin of `mulut_tpu.ops.tail_kernel`.  Every contraction of the
-cascade (both stages, every mode and rotation) runs the window-read simplex
-contraction (`window_fold_contract`, csrc/window_fold.cu): it reads the
-edge-padded plane at the mode's taps and builds the base index, the
+cascade (both stages, every mode and rotation, over 16-corner, folded,
+rank and per-rotation tables) runs the window-read simplex contraction
+(`window_fold_contract`, csrc/window_fold.cu): it reads the edge-padded
+plane at the mode's taps and builds the base index, the rank code, the
 simplex weights and the five live corners of each site itself.  The final
 stage's rotation un-shifts, quad-lane un-rotation, exact stage mix,
 PixelShuffle interleave and uint8 packing run in one pass of
@@ -11,8 +12,8 @@ PixelShuffle interleave and uint8 packing run in one pass of
 whose bytes are the row-major uint8 image (`unpack_u32`), byte-identical
 to the JAX package (ref behavior: sr/4_test_lut.py:263-306).  The JAX
 boundary's form of the contraction, `gather_fold_contract` over a base
-index and (C, N) weights (csrc/fold_contract.cu), stays for callers that
-hold those.
+index and (C, N) weights (csrc/fold_contract.cu, C = 16 or the rank
+tables' 5, 6 and 8), stays for callers that hold those.
 
 Each kernel wrapper runs its plain torch version when given CPU tensors
 and launches the kernel when given CUDA tensors; it never falls back from
@@ -41,8 +42,7 @@ from .taps import (
 )
 
 _MAX_MODES = 6          # csrc/tail_assemble.cu MULUT_MAX_MODES
-_FOLD_LANES = (8, 16, 64)
-_WINDOW_LANES = (1, 8, 16, 64)
+_WINDOW_LANES = (1, 4, 8, 9, 16, 36, 64)
 
 #: Kernel launches per wrapper (CUDA launches only; the plain CPU versions
 #: do not count).  A run resets them to 0 to show which kernels it used.
@@ -78,6 +78,12 @@ def _check_device(*ts):
 # K1: gather + weighted group-fold contraction
 # ---------------------------------------------------------------------------
 
+#: (C, u) instances of csrc/fold_contract.cu: 16-corner rows at the u's of
+#: the cascade's 16-corner tables, and rank rows (C = 5, or 6 and 8 for the
+#: tile-padded rank-folded rows of x4 and x2) at theirs.
+_FOLD_INSTANCES = frozenset([(16, 4), (16, 8), (16, 16), (16, 64), (5, 4),
+                             (5, 9), (5, 16), (5, 36), (6, 64), (8, 16)])
+
 
 def gather_fold_contract_plain(tab, base, wt, *, C: int, u: int):
     """Plain torch version of `gather_fold_contract` (same contract)."""
@@ -93,7 +99,8 @@ def gather_fold_contract_plain(tab, base, wt, *, C: int, u: int):
 def _fold_fn():
     fn = library("fold_contract").gather_fold_contract
     fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -102,10 +109,12 @@ def gather_fold_contract(tab, base, wt, *, C: int, u: int):
     """(u, Np) f32: out[j, n] = sum_c wt[c, n] * tab[base[n], c*u + j].
 
     The TPU form is `fold_contract(jnp.take(tab, base), wt)`; here the row
-    gather is fused into the kernel.  tab (R, C*u) int8; base (Np,) int32
-    (clamped into [0, R), as jnp.take(mode="clip")); wt (C, Np) float32
-    integer weights <= 2**interval.  All sums are integers below 2**24, so
-    the result is exact.
+    gather is fused into the kernel.  tab (R, C*u) int8: 16-corner rows
+    with `corner_lams_t` weights (C=16) or rank rows with `sorted_weights_t`
+    weights zero-padded to C (C = 5, 6, 8); base (Np,) int32 (clamped into
+    [0, R), as jnp.take(mode="clip")); wt (C, Np) float32 integer weights
+    <= 2**interval.  All sums are integers below 2**24, so the result is
+    exact.
     """
     Np = base.shape[0]
     if tab.dim() != 2 or tab.shape[1] != C * u or tab.dtype != torch.int8:
@@ -119,19 +128,21 @@ def gather_fold_contract(tab, base, wt, *, C: int, u: int):
     dev = _check_device(tab, base, wt)
     if dev.type == "cpu":
         return gather_fold_contract_plain(tab, base, wt, C=C, u=u)
-    if C != 16 or u not in _FOLD_LANES:
-        raise ValueError(f"the CUDA kernel takes C=16, u in {_FOLD_LANES}; "
-                         f"got C={C}, u={u}")
+    if (C, u) not in _FOLD_INSTANCES:
+        raise ValueError(f"the CUDA kernel takes (C, u) in "
+                         f"{sorted(_FOLD_INSTANCES)}; got C={C}, u={u}")
     if not (tab.is_contiguous() and base.is_contiguous()
             and wt.is_contiguous()):
         raise ValueError("gather_fold_contract needs contiguous inputs")
-    if tab.data_ptr() % 16:
-        raise ValueError("tab must be 16-byte aligned")
+    # the kernel's row loads: 16 bytes, 4 or 1 by what the row width keeps
+    align = 16 if C * u % 16 == 0 else (4 if C * u % 4 == 0 else 1)
+    if tab.data_ptr() % align:
+        raise ValueError(f"tab must be {align}-byte aligned")
     out = torch.empty((u, Np), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _fold_fn()(
             tab.data_ptr(), base.data_ptr(), wt.data_ptr(), out.data_ptr(),
-            Np, tab.shape[0], u, torch.cuda.current_stream().cuda_stream)
+            Np, tab.shape[0], C, u, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"gather_fold_contract: CUDA error {err}")
     LAUNCHES["gather_fold_contract"] += 1
@@ -149,6 +160,8 @@ class _WindowDesc(ctypes.Structure):
     _fields_ = [
         ("tap", (ctypes.c_longlong * 4) * 4),
         ("n_sites", ctypes.c_longlong),
+        ("pitch", ctypes.c_longlong),
+        ("rot_stride", ctypes.c_longlong),
         ("n_rot", ctypes.c_int),
         ("he", ctypes.c_int),
         ("we", ctypes.c_int),
@@ -159,6 +172,7 @@ class _WindowDesc(ctypes.Structure):
         ("interval", ctypes.c_int),
         ("L", ctypes.c_int),
         ("n_rows", ctypes.c_int),
+        ("n_base", ctypes.c_int),
     ]
 
 
@@ -166,7 +180,8 @@ class _WindowDesc(ctypes.Structure):
 def _window_fn():
     fn = library("window_fold").window_fold_contract
     fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.POINTER(_WindowDesc), ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(_WindowDesc), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -186,23 +201,54 @@ def window_base_fracs(xp, *, taps, origin, grid, interval: int):
             for planes in _window_planes(xp, taps, origin, grid)]
 
 
+def table_terms(tab, *, u: int, interval: int):
+    """(terms C, rank) of a contraction table read at u lanes: C = 16 for
+    16-corner rows (L**4 of them), C >= 5 for rank rows (24 * L**4, row
+    `lehmer * L**4 + base`); per-rotation tables stack on a leading axis.
+    Raises ValueError for any other shape."""
+    L4 = (2 ** (8 - interval) + 1) ** 4
+    rows, width = (tab.shape[-2], tab.shape[-1]) if tab.dim() >= 2 else (0, 0)
+    if tab.dim() in (2, 3) and width % u == 0:
+        if rows == L4 and width == 16 * u:
+            return 16, False
+        if rows == 24 * L4 and width // u >= 5:
+            return width // u, True
+    raise ValueError(
+        f"tab must be an int8 16-corner ({L4}, {16 * u}) table (C=16), a "
+        f"rank ({24 * L4}, C*{u}) table (C >= 5), or such tables stacked "
+        f"per rotation; got {tuple(tab.shape)} {tab.dtype}")
+
+
+def boundary_inputs(tab, base, fr, *, u: int, interval: int):
+    """The JAX boundary's (row index, (C, N) weights, C) of one rotation's
+    sites: `base` and `corner_lams_t` for 16-corner rows; for rank rows
+    `lehmer * L**4 + base` and `sorted_weights_t` zero-padded to C, as the
+    TPU's `_contract` (tail_kernel.py:218) builds them."""
+    C, rank = table_terms(tab, u=u, interval=interval)
+    if not rank:
+        return base, sx.corner_lams_t(*fr, interval=interval), C
+    wt = F.pad(sx.sorted_weights_t(*fr, interval=interval), (0, 0, 0, C - 5))
+    return sx._lehmer_code(*fr) * (tab.shape[-2] // 24) + base, wt, C
+
+
 def window_fold_contract_plain(tab, xp, *, taps, origin, grid,
                                interval: int, u: int):
     """Plain torch version of `window_fold_contract` (same contract): the
-    tap-plane slices, `simplex._base_and_fracs`, the 16-corner weights and
+    tap-plane slices, `simplex._base_and_fracs`, the weights and row index
+    of the table's format (`boundary_inputs`) and
     `gather_fold_contract_plain`; for u == 1 the rotation-summed
-    `simplex.simplex_planes_quad_int` that
-    `ensemble.rotation_ensemble_lanes_quad_int` runs."""
+    `simplex.simplex_planes_quad_int`."""
     if u == 1:
         planes4 = _window_planes(xp, taps, origin, grid)
         return sx.simplex_planes_quad_int(
             [tab] * 4, planes4, v=1, interval=interval).reshape(-1)
-    return torch.stack([
-        gather_fold_contract_plain(
-            tab, base, sx.corner_lams_t(*fr, interval=interval), C=16, u=u)
-        for base, fr in window_base_fracs(xp, taps=taps, origin=origin,
-                                          grid=grid, interval=interval)
-    ])
+    outs = []
+    for r, (base, fr) in enumerate(window_base_fracs(
+            xp, taps=taps, origin=origin, grid=grid, interval=interval)):
+        t = tab[r] if tab.dim() == 3 else tab
+        idx, wt, C = boundary_inputs(t, base, fr, u=u, interval=interval)
+        outs.append(gather_fold_contract_plain(t, idx, wt, C=C, u=u))
+    return torch.stack(outs)
 
 
 def window_fold_contract(tab, xp, *, taps, origin, grid, interval: int,
@@ -213,14 +259,19 @@ def window_fold_contract(tab, xp, *, taps, origin, grid, interval: int,
     xp: (lead, Hp, Wp) int32 plane with values in [0, 255]; taps: R <= 4
     rotations' four (dy, dx) tap offsets; site (b, y, x) of the
     (lead, he, we) `grid` reads xp[b, oy + y + dy, ox + x + dx] with
-    `origin` (oy, ox).  tab: (L**4, 16*u) int8 16-corner table, L =
-    2**(8-interval) + 1.  For u in (8, 16, 64) returns (R, u, Np+8) float32,
-    Np = lead*he*we: rotation r's `gather_fold_contract(tab, base_r,
-    corner_lams_t(fracs_r))`, the 8 junk sites (base 0, fracs 0) appended.
-    For u == 1 (the int8 (L**4, 16) inner-stage table, R == 4) returns the
-    rotations' sum as (Np,) int32, the bytes of
-    `ensemble.rotation_ensemble_lanes_quad_int`.  All sums are integers
-    below 2**24, so the result is exact.
+    `origin` (oy, ox).  L = 2**(8-interval) + 1.
+
+    For u in (4, 8, 9, 16, 36, 64), tab is int8: a 16-corner (L**4, 16*u)
+    table, a rank (24 * L**4, C*u) table (C >= 5, row `lehmer * L**4 +
+    base`; `simplex_tables.rank_fold_lut` / `rank_expand_shared`), or R
+    such tables stacked per rotation (`rank_expand_rotations`, the
+    16-corner per-rotation copies).  Returns (R, u, Np+8) float32, Np =
+    lead*he*we: rotation r's `gather_fold_contract` on the row index and
+    weights of `boundary_inputs`, the 8 junk sites (base 0, fracs 0)
+    appended.  For u == 1, tab is the (L**4, 16) int8 or int32
+    inner-stage table and R == 4; returns the rotations' sum as (Np,)
+    int32, the bytes of `ensemble.rotation_ensemble_lanes_quad_int`.  All
+    sums are integers below 2**24, so the result is exact.
     """
     taps = tuple(tuple((int(dy), int(dx)) for dy, dx in rt) for rt in taps)
     if not 1 <= interval <= 8:
@@ -228,18 +279,26 @@ def window_fold_contract(tab, xp, *, taps, origin, grid, interval: int,
     L = 2 ** (8 - interval) + 1
     if u not in _WINDOW_LANES:
         raise ValueError(f"u must be one of {_WINDOW_LANES}, got {u}")
-    if (tab.dim() != 2 or tuple(tab.shape) != (L ** 4, 16 * u)
-            or tab.dtype != torch.int8):
-        raise ValueError(
-            f"tab must be the ({L ** 4}, {16 * u}) int8 16-corner table "
-            f"(C=16), got {tuple(tab.shape)} {tab.dtype}")
+    if u == 1:
+        if (tab.dim() != 2 or tuple(tab.shape) != (L ** 4, 16)
+                or tab.dtype not in (torch.int8, torch.int32)):
+            raise ValueError(
+                f"tab must be the ({L ** 4}, 16) int8 or int32 inner-stage "
+                f"table (C=16), got {tuple(tab.shape)} {tab.dtype}")
+        rank = False
+    else:
+        _, rank = table_terms(tab, u=u, interval=interval)
+        if tab.dtype != torch.int8:
+            raise ValueError(f"tab must be int8, got {tab.dtype}")
     if xp.dim() != 3 or xp.dtype != torch.int32:
         raise ValueError(f"xp must be a (lead, Hp, Wp) int32 plane, got "
                          f"{tuple(xp.shape)} {xp.dtype}")
     if (not 1 <= len(taps) <= 4 or any(len(rt) != 4 for rt in taps)
-            or (u == 1 and len(taps) != 4)):
-        raise ValueError("taps must be 1 to 4 rotations (4 for u == 1) of "
-                         "four (dy, dx) offsets each")
+            or (u == 1 and len(taps) != 4)
+            or (tab.dim() == 3 and tab.shape[0] != len(taps))):
+        raise ValueError("taps must be 1 to 4 rotations (4 for u == 1, one "
+                         "per table of a per-rotation stack) of four "
+                         "(dy, dx) offsets each")
     (oy, ox), (he, we) = origin, grid
     hp, wp = xp.shape[1], xp.shape[2]
     if he < 1 or we < 1:
@@ -264,9 +323,13 @@ def window_fold_contract(tab, xp, *, taps, origin, grid, interval: int,
     for r, rt in enumerate(taps):
         for k, (dy, dx) in enumerate(rt):
             d.tap[r][k] = dy * wp + dx
+    elem = tab.element_size()
     d.n_sites, d.n_rot = n, len(taps)
+    d.pitch = tab.shape[-1] * elem
+    d.rot_stride = tab.stride(0) * elem if tab.dim() == 3 else 0
     d.he, d.we, d.hp, d.wp, d.oy, d.ox = he, we, hp, wp, oy, ox
-    d.interval, d.L, d.n_rows = interval, L, L ** 4
+    d.interval, d.L, d.n_rows, d.n_base = (interval, L, tab.shape[-2],
+                                           L ** 4)
     if u == 1:
         out = torch.empty((n,), dtype=torch.int32, device=dev)
     else:
@@ -274,7 +337,7 @@ def window_fold_contract(tab, xp, *, taps, origin, grid, interval: int,
                           device=dev)
     with torch.cuda.device(dev):
         err = _window_fn()(xp.data_ptr(), tab.data_ptr(), out.data_ptr(),
-                           ctypes.byref(d), u,
+                           ctypes.byref(d), u, int(rank), elem,
                            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"window_fold_contract: CUDA error {err}")
@@ -333,20 +396,6 @@ def stage1_quad_k128(tab, img, *, mode: str, interval: int):
         piece = ext[r, 0, :n]
         acc = piece if acc is None else acc + piece
     return acc.reshape(lead)
-
-
-def stage1_quad_int8(tab, img, *, mode: str, interval: int):
-    """Inner-stage (v == 1) rotation ensemble of a non-symmetric mode over
-    its int8 (L**4, 16) table: one window contraction (u=1) sums the four
-    rotations.  Returns the (..., h, w) int32 accumulator, the bytes of
-    `ensemble.rotation_ensemble_lanes_quad_int(...)[..., 0]`."""
-    pad = mode_pad(mode)
-    h, w = img.shape[-2], img.shape[-1]
-    xp = ens._pad_all(img, pad)
-    out = window_fold_contract(
-        tab, _plane(xp), taps=[rotated_taps(mode, r) for r in range(4)],
-        origin=(pad, pad), grid=(h, w), interval=interval, u=1)
-    return out.reshape(img.shape)
 
 
 def folded_flat(flut, img, *, mode: str, v: int, interval: int):
@@ -532,10 +581,15 @@ def tail_assemble(folded, quads, *, lead, h: int, w: int, scale: int,
     return out
 
 
-def supports_tail_kernel(modes: str, scale: int) -> bool:
+def supports_tail_kernel(modes: str, scale: int, *,
+                         interval: int = 4) -> bool:
     """The packed cascade covers x4 (4 sub-pixels per 32-bit word) on mode
-    sets where every mode is 90-degree-symmetric (s/d/e) or not (y/h/o)."""
-    return scale == 4 and all(m in "sdeyho" for m in modes)
+    sets where every mode is 90-degree-symmetric (s/d/e) or not (y/h/o),
+    at the intervals where `ensemble.prepare_expanded_luts` gives the
+    non-symmetric modes one shared table (L <= 17: interval >= 4; below,
+    the rank formats give way to per-rotation 16-corner copies)."""
+    return (scale == 4 and interval >= 4
+            and all(m in "sdeyho" for m in modes))
 
 
 def lut_cascade_packed(tabs, img, *, stages: int, modes: str, scale: int,
@@ -544,10 +598,12 @@ def lut_cascade_packed(tabs, img, *, stages: int, modes: str, scale: int,
     returns packed int32 (B*C*h, scale, wp) — `unpack_u32` yields the
     uint8 image (byte view).
 
-    `tabs` are `ensemble.prepare_expanded_luts` tables (the formats are
-    recognized by shape).  img: (..., H, W) integer in [0, 255]; channels
-    ride the leading dims.  valid_hw: optional (h, w) scalars or (B,)
-    vectors for bucketed evaluation (see `ensemble.clamp_pad_region`).
+    `tabs` are `ensemble.prepare_expanded_luts(..., shared_quad=True)`
+    tables, with or without the other flags of `ensemble.KERNEL_FORMATS`
+    (the formats are recognized by shape).  img: (..., H, W) integer in
+    [0, 255]; channels ride the leading dims.  valid_hw: optional (h, w)
+    scalars or (B,) vectors for bucketed evaluation (see
+    `ensemble.clamp_pad_region`).
     Byte-identical to `mulut_tpu`'s `lut_cascade_packed`.
     """
     q = 2 ** interval
@@ -565,11 +621,13 @@ def lut_cascade_packed(tabs, img, *, stages: int, modes: str, scale: int,
             elif k128:
                 out = stage1_quad_k128(lut, x, mode=mode, interval=interval)
             elif fold_geometry(mode) is not None:
-                raise NotImplementedError(
-                    "the (L**4, 64) folded inner-stage format runs through "
-                    "lut_cascade_int, a later slice; use the k128 tables")
+                out = ens.rotation_ensemble_lanes_folded_int(
+                    lut, x, mode=mode, upscale=1, interval=interval,
+                )[..., 0]
             else:
-                out = stage1_quad_int8(lut, x, mode=mode, interval=interval)
+                out = ens.rotation_ensemble_lanes_quad_int(
+                    lut, x, mode=mode, upscale=1, interval=interval,
+                )[..., 0]
             acc = out if acc is None else acc + out
         # k128 contributions are integer-valued f32 (< 2**24 — exact)
         acc = acc.to(torch.int32)

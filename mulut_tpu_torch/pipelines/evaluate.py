@@ -2,11 +2,12 @@
 
 Torch twins of `mulut_tpu.pipelines.evaluate`:
 
-- `LutEvaluator`, for its kernel path: the packed cascade
-  (`ops.tail_kernel.lut_cascade_packed`) over the expanded int8 tables,
-  byte-identical to the reference NumPy engine (ref:
-  sr/4_test_lut.py:263-306).  Replaces the reference's per-image process
-  fan-out (ref: sr/4_test_lut.py:257-259) with the card's batch dimension.
+- `LutEvaluator`: the packed cascade (`ops.tail_kernel.lut_cascade_packed`)
+  at x4, the integer cascade (`ops.ensemble.lut_cascade_int`) at other
+  scales and intervals, over the expanded int8 tables, byte-identical to
+  the reference NumPy engine (ref: sr/4_test_lut.py:263-306), and its
+  device YUV pipeline.  Replaces the reference's per-image process fan-out
+  (ref: sr/4_test_lut.py:257-259) with the card's batch dimension.
 - `NetEvaluator`, net mode: the trained tap-MLP units run directly (no LUT
   caching), in float32 (`models.srnet.srnets_predict`) or, with
   `fast=True`, in bf16 through one stage-ensemble kernel launch per stage
@@ -33,24 +34,69 @@ from ..models.torch_import import (
     params_from_numpy,
     srnets_params_from_torch,
 )
-from ..ops.ensemble import prepare_expanded_luts
+from ..ops.ensemble import (
+    KERNEL_FORMATS,
+    lut_cascade_int,
+    prepare_expanded_luts,
+)
 from ..ops.quant import quantize_srnets_for_fast
 from ..ops.resize import bicubic_upscale, full_f32_matmul
 from ..ops.tail_kernel import (
     lut_cascade_packed,
     supports_tail_kernel,
-    unpack_u32,
+    unpack_u32_device,
 )
 from ..utils.device import resolve_device
 from ..utils.lut_io import load_luts
 from ..utils.metrics import _YCBCR_O, _YCBCR_T
 
 
-class LutEvaluator:
-    """Holds the expanded LUTs on the device and runs the packed cascade.
+def _rgb_to_ycc(rgb: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) uint8 RGB on the device -> float32 YCbCr, one float32
+    matmul as the JAX package's HIGHEST-precision einsum (ref:
+    sr/Test.py:317-398)."""
+    dev = rgb.device
+    T = torch.as_tensor(_YCBCR_T, dtype=torch.float32, device=dev)
+    O = torch.as_tensor(_YCBCR_O, dtype=torch.float32, device=dev)
+    with full_f32_matmul():
+        return rgb.float() @ T.T + O
 
-    `device=None` means the CUDA card (and raises where there is none);
-    `device="cpu"` runs every kernel's plain torch version.
+
+def _chroma_sr(ycc: torch.Tensor, scale: int):
+    """The rounded Cb and Cr planes of `ycc`, bicubic-upscaled: two
+    (B, H*s, W*s) float32 planes."""
+    cbcr = torch.clamp(torch.round(ycc[..., 1:]), 0, 255)
+    cbcr_sr = bicubic_upscale(cbcr.permute(0, 3, 1, 2), scale)
+    return cbcr_sr[:, 0], cbcr_sr[:, 1]
+
+
+def _ycc_to_rgb_einsum(y_sr: torch.Tensor, ycc: torch.Tensor,
+                       scale: int) -> torch.Tensor:
+    """(Y, Cb, Cr) - O times inv(T) as one float32 matmul, as the JAX
+    package's `LutEvaluator` computes it (an einsum at HIGHEST precision;
+    its `NetEvaluator` uses per-channel plane FMAs instead), rounded and
+    clipped to (B, H*s, W*s, 3) uint8."""
+    dev = ycc.device
+    cb, cr = _chroma_sr(ycc, scale)
+    O = torch.as_tensor(_YCBCR_O, dtype=torch.float32, device=dev)
+    Ti = torch.as_tensor(np.linalg.inv(_YCBCR_T), dtype=torch.float32,
+                         device=dev)
+    with full_f32_matmul():
+        rgb = (torch.stack([y_sr, cb, cr], dim=-1) - O) @ Ti.T
+    return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
+
+
+class LutEvaluator:
+    """Holds the expanded LUTs on the device and runs the cascade.
+
+    At x4 on s/d/y/e/h/o mode sets and intervals >= 4 it runs the packed
+    cascade (`ops.tail_kernel.lut_cascade_packed`) over the JAX kernel
+    path's table formats (`ops.ensemble.KERNEL_FORMATS`); at any other
+    scale or interval the integer cascade (`ops.ensemble.lut_cascade_int`)
+    over the JAX package's default formats.  Every contraction of either
+    runs the window-read kernel K1.  `device=None` means the CUDA card (and
+    raises where there is none); `device="cpu"` runs every kernel's plain
+    torch version.
     """
 
     #: Default cap on input pixels per dispatch (batch x Hb x Wb): the
@@ -69,11 +115,6 @@ class LutEvaluator:
             raise NotImplementedError(
                 "n_devices > 1 (batch sharding over several cards) is a "
                 "later slice of the port")
-        if not supports_tail_kernel(modes, scale):
-            raise NotImplementedError(
-                f"scale={scale}, modes={modes!r}: only the x4 packed "
-                "cascade is ported; other scales need lut_cascade_int, a "
-                "later slice of the port")
         self.stages = stages
         self.modes = modes
         self.scale = scale
@@ -81,19 +122,30 @@ class LutEvaluator:
         self.bucket = bucket
         self.max_batch_pixels = max_batch_pixels or self.MAX_BATCH_PIXELS
         self.device = resolve_device(device, "LutEvaluator")
+        self.kernel = supports_tail_kernel(modes, scale, interval=interval)
         # built on the device from the ~4 MB of source LUTs
-        self.luts = prepare_expanded_luts(luts, interval=interval,
-                                          device=self.device)
+        self.luts = prepare_expanded_luts(
+            luts, interval=interval, device=self.device,
+            **(KERNEL_FORMATS if self.kernel else {}))
+
+    def _cascade(self, img: torch.Tensor, valid_hw=None) -> torch.Tensor:
+        """(..., H, W) uint8 on the device -> (..., H*scale, W*scale) uint8
+        on the device."""
+        kw = dict(stages=self.stages, modes=self.modes, scale=self.scale,
+                  interval=self.interval, valid_hw=valid_hw)
+        if self.kernel:
+            packed = lut_cascade_packed(self.luts, img, **kw)
+            return unpack_u32_device(packed, img.shape[:-2], img.shape[-2],
+                                     img.shape[-1], self.scale)
+        return lut_cascade_int(self.luts, img, expanded=True,
+                               **kw).to(torch.uint8)
 
     def _exec(self, chw, valid_hw=None) -> np.ndarray:
         """One untiled dispatch -> host uint8 (..., H*scale, W*scale);
         `valid_hw` as in `ops.ensemble.clamp_pad_region`."""
         img = torch.from_numpy(np.ascontiguousarray(chw)).to(self.device)
-        packed = lut_cascade_packed(
-            self.luts, img, stages=self.stages, modes=self.modes,
-            scale=self.scale, interval=self.interval, valid_hw=valid_hw)
-        h, w = chw.shape[-2], chw.shape[-1]
-        return unpack_u32(packed, chw.shape[:-2], h, w, self.scale)
+        return np.ascontiguousarray(
+            self._cascade(img, valid_hw).cpu().numpy())
 
     def _exec_bucketed(self, buf, hs, ws) -> np.ndarray:
         """One bucketed dispatch -> host uint8 (..., Hb*scale, Wb*scale)."""
@@ -192,14 +244,27 @@ class LutEvaluator:
         return self._exec_bucketed(batch, hs, ws)
 
     def upscale_yuv_batch(self, imgs_rgb: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(
-            "the device YUV pipeline (ops/resize.py chroma bicubic) is a "
-            "later slice of the port")
+        """(B, H, W, 3) uint8 RGB -> (B, H*s, W*s, 3) uint8, one dispatch:
+        RGB -> YCbCr, the cascade on the luma plane only, chroma as two
+        bicubic matmuls, YCbCr -> RGB (ref: sr/Test.py:317-398), nothing
+        back on the host in between."""
+        h, w = imgs_rgb.shape[1:3]
+        if h * w * imgs_rgb.shape[0] > self.max_batch_pixels:
+            raise ValueError(
+                f"YUV batch {imgs_rgb.shape[0]}x{h}x{w} exceeds the untiled "
+                f"device-safe size ({self.max_batch_pixels} px); split the "
+                "batch or raise max_batch_pixels explicitly")
+        rgb = torch.from_numpy(np.ascontiguousarray(imgs_rgb)).to(
+            self.device)
+        ycc = _rgb_to_ycc(rgb)
+        y = torch.clamp(torch.round(ycc[..., 0]), 0, 255).to(torch.uint8)
+        y_sr = self._cascade(y[:, None])[:, 0].float()
+        return _ycc_to_rgb_einsum(y_sr, ycc, self.scale).cpu().numpy()
 
     def upscale_yuv(self, img_rgb: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(
-            "the device YUV pipeline (ops/resize.py chroma bicubic) is a "
-            "later slice of the port")
+        """(H, W, 3) uint8 RGB -> (H*s, W*s, 3) uint8 (see
+        `upscale_yuv_batch`)."""
+        return self.upscale_yuv_batch(img_rgb[None])[0]
 
     def _check_untiled_size(self, hb: int, wb: int, channels: int) -> None:
         """Refuse to run the untiled cascade past the pixel cap."""
@@ -329,12 +394,8 @@ class NetEvaluator:
         """(B, H, W, 3) uint8 RGB on the device -> (B, H*s, W*s, 3) uint8:
         luma through the cascade, chroma as two bicubic matmuls, the color
         transforms as per-channel plane FMAs (ref: sr/Test.py:317-398)."""
-        dev = rgb.device
-        T = torch.as_tensor(_YCBCR_T, dtype=torch.float32, device=dev)
-        O = torch.as_tensor(_YCBCR_O, dtype=torch.float32, device=dev)
         Ti = np.linalg.inv(_YCBCR_T)
-        with full_f32_matmul():
-            ycc = rgb.float() @ T.T + O
+        ycc = _rgb_to_ycc(rgb)
         y = torch.clamp(torch.round(ycc[..., 0]), 0, 255)
         # XLA's jitted `y / 255.0` is a multiply by float32(1/255)
         x = y[:, None] * float(np.float32(1 / 255))
@@ -344,9 +405,7 @@ class NetEvaluator:
                 scale=self.scale, final_clip=self._luma_clip)[:, 0].float()
         else:
             y_sr = torch.clamp(torch.round(self._forward(x)[:, 0]), 0, 255)
-        cbcr = torch.clamp(torch.round(ycc[..., 1:]), 0, 255)
-        cbcr_sr = bicubic_upscale(cbcr.permute(0, 3, 1, 2), self.scale)
-        cb, cr = cbcr_sr[:, 0], cbcr_sr[:, 1]
+        cb, cr = _chroma_sr(ycc, self.scale)
         chans = []
         for o in range(3):
             c = [float(np.float32(a)) for a in

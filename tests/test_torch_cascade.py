@@ -50,7 +50,7 @@ def _jax_cascade(interval, bucketed):
 def _compare(luts_np, jtabs, img, interval, valid_hw=None, ttabs=None):
     if ttabs is None:
         ttabs = tens.prepare_expanded_luts(luts_np, interval=interval,
-                                           device="cpu")
+                                           device="cpu", **KERNEL_FORMATS)
     want = np.asarray(_jax_cascade(interval, valid_hw is not None)(
         jtabs, jnp.asarray(img, jnp.int32),
         None if valid_hw is None else tuple(jnp.asarray(a)
@@ -127,11 +127,13 @@ def test_stage1_k128(interval6, mode):
 
 
 def test_unported_stage1_format_raises(interval6):
+    """The (L**4, 64) folded stage-1 s/d tables and the all-rank final
+    stage (`shared_quad=True` alone), refused before the rank formats were
+    ported, now give JAX's bytes."""
     luts, _ = interval6
     jtabs = jax_prepare(luts, interval=6, shared_quad=True,
                         corner16_modes="y", fold16_modes="sd")
     ttabs = tens.tables_from_numpy(jtabs, "cpu")   # (L**4, 64) stage-1 s/d
-    img = torch.zeros((1, 8, 8), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttk.lut_cascade_packed(ttabs, img, stages=STAGES, modes=MODES,
-                               scale=SCALE, interval=6)
+    img = np.random.default_rng(17).integers(0, 256, (2, 9, 30)).astype(
+        np.uint8)
+    _compare(luts, jtabs, img, 6, ttabs=ttabs)

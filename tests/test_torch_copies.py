@@ -2,10 +2,11 @@
 import hygiene.
 
 `mulut_tpu_torch` keeps its own copies of `ops/taps.py`, the NumPy table
-builders of `ops/simplex_tables.py`, `utils/lut_io.py`, the resize weight
-builders of `ops/resize.py`, `window_offsets` of `ops/unit_kernel.py`, the
-YCbCr constants and metrics of `utils/metrics.py`, the NumPy calibration
-and fixed-point code of `ops/quant.py`, and, for the training half,
+builders of `ops/simplex_tables.py` (rank chains and Lehmer codes too),
+`utils/lut_io.py`, the resize weight builders of `ops/resize.py`,
+`window_offsets` of `ops/unit_kernel.py`, the YCbCr constants and
+metrics of `utils/metrics.py`, the NumPy calibration and fixed-point code
+of `ops/quant.py`, and, for the training half,
 `lut_grid` of `pipelines/transfer.py`, the decision tables and comparison
 code of `ops/simplex.py`, the synthetic images of `data/synthetic.py`
 and `cosine_lr` of `pipelines/train.py` (importing them from
@@ -104,6 +105,23 @@ def test_expand_and_fold_lut_equal(interval, v):
             np.testing.assert_array_equal(
                 tst.fold_lut(lut, geo, p, interval),
                 jst.fold_lut(lut, geo, p, interval))
+
+
+def test_rank_chain_and_lehmer_equal():
+    """`rank_chain_masks`, `lehmer_of_ranks` (over every rank tuple, ties
+    and invalid ones included) and `comparison_code` of
+    `ops/simplex_tables.py`."""
+    import itertools
+
+    got, want = tst.rank_chain_masks(), jst.rank_chain_masks()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    r = np.array(list(itertools.product(range(4), repeat=4))).T
+    np.testing.assert_array_equal(tst.lehmer_of_ranks(*r),
+                                  jst.lehmer_of_ranks(*r))
+    f = np.random.default_rng(3).integers(0, 4, (4, 300))
+    np.testing.assert_array_equal(tst.comparison_code(*f),
+                                  jst.comparison_code(*f))
 
 
 def test_lut_io_equal(tmp_path):

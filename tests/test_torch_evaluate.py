@@ -101,15 +101,34 @@ def test_no_cpu_fallback(small_luts, monkeypatch):
     (dict(scale=2), "scale"),
 ])
 def test_later_slices_raise(small_luts, kw, what):
+    """band > 0 and n_devices > 1 are later slices and raise.  scale=2
+    raised until the integer cascade was ported; it now runs
+    `lut_cascade_int`, byte-equal to the JAX evaluator."""
     cfg = dict(CFG, **kw)
+    if what == "scale":
+        rng = np.random.default_rng(4)
+        luts = {k: (t if k.startswith("s1") else rng.integers(
+            -127, 128, (17 ** 4, 4)).astype(np.int8))
+            for k, t in small_luts.items()}
+        port = LutEvaluator(luts, **cfg, device="cpu")
+        assert not port.kernel
+        img = rng.integers(0, 256, (11, 14, 3)).astype(np.uint8)
+        np.testing.assert_array_equal(port.upscale(img),
+                                      JaxEvaluator(luts, **cfg).upscale(img))
+        return
     with pytest.raises(NotImplementedError, match=what):
         LutEvaluator(small_luts, **cfg, device="cpu")
 
 
 def test_yuv_raises(evaluators):
-    port = evaluators[2]
-    img = np.zeros((4, 4, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="YUV"):
-        port.upscale_yuv(img)
-    with pytest.raises(NotImplementedError, match="YUV"):
-        port.upscale_yuv_batch(img[None])
+    """The device YUV pipeline, refused before this slice of the port, now
+    gives the JAX evaluator's bytes (`upscale_yuv` and
+    `upscale_yuv_batch`)."""
+    jax_exact, _, port, _ = evaluators
+    imgs = np.random.default_rng(21).integers(0, 256, (2, 10, 15, 3)).astype(
+        np.uint8)
+    want = jax_exact.upscale_yuv_batch(imgs)
+    got = port.upscale_yuv_batch(imgs)
+    assert got.dtype == np.uint8 and got.shape == (2, 40, 60, 3)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(port.upscale_yuv(imgs[1]), want[1])

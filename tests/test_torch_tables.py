@@ -1,9 +1,11 @@
 """The port's expanded-table build against `mulut_tpu`'s.
 
-`mulut_tpu_torch.ops.ensemble.prepare_expanded_luts` builds the formats the
-JAX evaluator's kernel path uses (`prepare_expanded_luts(shared_quad=True,
-corner16_modes="y", fold16_modes="sd", k128_stage1="sd", int8_stage1="y")`),
-on the host with NumPy (device=None) or with the torch twins on a device.
+`mulut_tpu_torch.ops.ensemble.prepare_expanded_luts` builds every format
+of the JAX package's, here with the flags of the JAX evaluator's kernel
+path (`KERNEL_FORMATS`: `shared_quad=True, corner16_modes="y",
+fold16_modes="sd", k128_stage1="sd", int8_stage1="y"`), on the host with
+NumPy (device=None) or with the torch twins on a device; the other flag
+sets and the rank builders are held in tests/test_torch_rank_tables.py.
 Tolerance: exact byte equality — every format is a gather/permutation of
 the int8 source tables.
 """
@@ -50,14 +52,16 @@ def test_tables_interval6(device, src_dtype):
     luts = _luts(6, 5, src_dtype)
     want = jax_prepare(luts, interval=6, **KERNEL_FORMATS)
     _assert_equal(tens.prepare_expanded_luts(luts, interval=6,
-                                             device=device), want)
+                                             device=device,
+                                             **KERNEL_FORMATS), want)
 
 
 @pytest.mark.parametrize("device", [None, "cpu"])
 def test_tables_interval4(interval4, device):
     """The shipped 17**4 shape (85.5 MB folded stage-2 tables)."""
     luts, want = interval4
-    got = tens.prepare_expanded_luts(luts, interval=4, device=device)
+    got = tens.prepare_expanded_luts(luts, interval=4, device=device,
+                                     **KERNEL_FORMATS)
     _assert_equal(got, want)
     L4 = 17 ** 4
     shapes = {k: tuple(t.shape) for k, t in got.items()}
@@ -98,6 +102,12 @@ def test_device_twins(interval, v):
 @pytest.mark.parametrize("key,v", [("s2_e", 16), ("s1_h", 1), ("s1_e", 1),
                                    ("s2_o", 16)])
 def test_unported_formats_raise(key, v):
-    lut = np.zeros((5 ** 4, v), np.int8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tens.prepare_expanded_luts({key: lut}, interval=6)
+    """The e/h/o formats of the kernel path, refused before the rank tables
+    were ported, now byte-equal to JAX's: rank-folded (s2_e), shared rank
+    (s2_o), (L**4, 64) folded (s1_e) and (L**4, 16) int32 (s1_h)."""
+    lut = np.random.default_rng(v).integers(-127, 128, (5 ** 4, v)).astype(
+        np.int8)
+    want = jax_prepare({key: lut}, interval=6, **KERNEL_FORMATS)
+    for device in (None, "cpu"):
+        _assert_equal(tens.prepare_expanded_luts(
+            {key: lut}, interval=6, device=device, **KERNEL_FORMATS), want)

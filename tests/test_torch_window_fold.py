@@ -25,6 +25,7 @@ import jax.numpy as jnp
 
 from mulut_tpu.ops import ensemble as jens
 from mulut_tpu.ops import tail_kernel as jtk
+from mulut_tpu_torch.ops import ensemble as tens
 from mulut_tpu_torch.ops import simplex as tsx
 from mulut_tpu_torch.ops import tail_kernel as ttk
 from mulut_tpu_torch.ops.taps import mode_taps, rotated_taps
@@ -92,15 +93,17 @@ def test_call_site_equals_jax(name, mode, width, v, interval):
 
 @pytest.mark.parametrize("interval", [4, 6])
 def test_stage1_quad_int8_equals_jax(interval):
-    """u=1: the four rotations summed in the wrapper, against JAX's
-    rotation ensemble over the int8 (L**4, 16) table."""
+    """u=1: the four rotations summed in the wrapper (through the port's
+    `rotation_ensemble_lanes_quad_int`, which the packed cascade's stage 1
+    calls for the int8 (L**4, 16) table), against JAX's."""
     tab = _table(interval, 16, interval)
     img = _image((3,), 10, 15, 2 * interval, interval)
     want = jax.jit(lambda t, x: jens.rotation_ensemble_lanes_quad_int(
         t, x, mode="y", upscale=1, interval=interval))(jnp.asarray(tab),
                                                        jnp.asarray(img))
-    got = ttk.stage1_quad_int8(torch.as_tensor(tab), torch.as_tensor(img),
-                               mode="y", interval=interval)
+    got = tens.rotation_ensemble_lanes_quad_int(
+        torch.as_tensor(tab), torch.as_tensor(img), mode="y", upscale=1,
+        interval=interval)[..., 0]
     assert got.dtype == torch.int32 and got.shape == img.shape
     np.testing.assert_array_equal(got.numpy(), np.asarray(want)[..., 0])
 
@@ -233,8 +236,8 @@ def test_wrapper_refusals(case):
     elif case == "C":
         tab = torch.zeros((625, 5 * u), dtype=torch.int8)
     elif case == "u":
-        kw["u"] = 4
-        tab = torch.zeros((625, 64), dtype=torch.int8)
+        kw["u"] = 5
+        tab = torch.zeros((625, 80), dtype=torch.int8)
     elif case == "xp dtype":
         xp = xp.long()
     elif case == "xp rank":
