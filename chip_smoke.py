@@ -209,6 +209,35 @@ cascade (`_lut_rank`; K1 in both forms, K2 at six modes):
      end the JAX-boundary K1 at C != 16 timed on the recorded inputs, its
      launches the sum of the configurations' counted runs (none).
 
+Then how the port cuts an image or a batch (`_parallel`; K1, K2, K3):
+
+ 16. a 4K LR frame (3 x 2160 x 3840, structured, seed 16) on phase 3's
+     LUTs through `LutEvaluator(band=256)` and the untiled evaluator: bytes
+     equal, K1 and K2 launches (6 and 1 per slab, 9 slabs; 6 and 1),
+     device ms and peak memory of each, their ratio; an 8K frame (3 x
+     4320 x 7680, which the untiled path cannot hold) banded: peak memory
+     below the 4K untiled peak, 3 bands (top, middle, the overlapping
+     last) byte-equal to the untiled cascade on their rows widened by 64
+     each side, ms and MPix/s; `upscale_many` on 6 frames up to 1100 x
+     1900 with bucket 64 and band 128 against bucket 64 alone, bytes
+     equal; `cascade_row_sharded` over `make_mesh(4, ["cuda:0"] * 4)` on
+     the batch and the 4K frame, bytes equal to the unsharded packed
+     cascade (24 and 4 launches); `net_row_sharded` (the `_ftr2` stacks, 8
+     K3 launches) and `NetEvaluator(fast=True)` over 4 shards at B = 7
+     (RGB and YUV), bytes equal to the unsharded card forward; a train
+     step (phase 13's width) and a fine-tune step (the `_ftr2` units'
+     tables) on 2 shards against one device: the loss at phase 13's gates,
+     the updated params within 1e-6 (the JAX package's
+     tests/test_parallel.py), the train gradients at phase 13's gate; the
+     fine-tune gradients are sums of two partial sums whose stage-2 tables
+     move by more than phase 13's 1e-6 under the split (float32
+     summation order: ~4e-6 of their max on the `_ftr2` tables, ~1.5e-6
+     on random ones, a reading), so they are held to one device's at
+     2e-5, to the same 2-shard step on the CPU path at phase 13's 1e-6,
+     and, with every value in float64, to one device's at 1e-12;
+     `dryrun_multidevice(4, ["cuda:0"] * 4)`; no plain contraction on the
+     LUT paths; the phase's wall time.
+
 Prints a `{"kernels": [...]}` line (K1 in both forms, K2-K11; K8 with the
 float32 head; K3, K6 and K8 at nf=256 under names ending in "_nf256"; K1
 per phase 15 configuration, K2 at six modes and the JAX-boundary K1 at
@@ -233,17 +262,19 @@ prints each kernel instance's SASS instruction count by opcode
     python3 chip_smoke.py --training
     python3 chip_smoke.py --nf256
     python3 chip_smoke.py --lut-rank
+    python3 chip_smoke.py --parallel
 
 build the kernels and run phase 13 (its deploy timings without phase 6's
-beside them), phase 14 (with ptxas's report of the plain sources) or phase
-15 (with ptxas's report of the K1 sources) alone; readings and gates as in
-the full run.
+beside them), phase 14 (with ptxas's report of the plain sources), phase
+15 (with ptxas's report of the K1 sources) or phase 16 alone; readings and
+gates as in the full run.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2489,6 +2520,7 @@ def main() -> int:
     _training_half(torch, tk, imgs, (dev_ms, wf_site_ms))
     net_entries += _plain_nf256(torch, tk, imgs)
     net_entries += _lut_rank(torch, tk, imgs, out)
+    _parallel(torch, tk, imgs)
 
     print(json.dumps({"kernels": [
         {"name": "window_fold_contract", "route": "cuda",
@@ -2809,20 +2841,33 @@ def _step_readings(torch, rec, what):
     return med
 
 
-def _grad_gate(what, got, want, loss_rel, grad_rel):
-    """One step's (loss, {name: grad}) on the card against the CPU path."""
+def _grad_gate(what, got, want, loss_rel, grad_rel,
+               names=("card", "CPU")):
+    """One step's (loss, {name: grad}) on the card against the CPU path
+    (or `names` (got, want)); a gate left None is a reading only.  A loss
+    or gradient ratio that is not finite (a NaN or inf on either side)
+    fails, gate or reading."""
     (lg, gg), (lw, gw) = got, want
     rel = abs(lg - lw) / abs(lw)
-    worst, worst_key = 0.0, None
+    worst, worst_key, finite = 0.0, None, math.isfinite(rel)
     for k, w in gw.items():
         r = float((gg[k].cpu() - w).abs().max() / w.abs().max())
+        if not math.isfinite(r):
+            finite, worst, worst_key = False, r, k
+            break
         if r > worst:
             worst, worst_key = r, k
-    print(f"{what}: loss card {lg:.9g} CPU {lw:.9g} (rel {rel:.3e}, gate "
-          f"{loss_rel}); worst gradient {worst_key} rel to its max "
-          f"{worst:.3e} (gate {grad_rel}) over {len(gw)} tensors")
-    if not rel <= loss_rel or not worst <= grad_rel:
-        raise RuntimeError(f"{what}: card departs from the CPU path")
+    print(f"{what}: loss {names[0]} {lg:.9g} {names[1]} {lw:.9g} (rel "
+          f"{rel:.3e}{_gate_note(loss_rel)}); worst gradient {worst_key} "
+          f"rel to its max {worst:.3e}{_gate_note(grad_rel)} over "
+          f"{len(gw)} tensors")
+    if (not finite or (loss_rel is not None and not rel <= loss_rel)
+            or (grad_rel is not None and not worst <= grad_rel)):
+        raise RuntimeError(f"{what}: {names[0]} departs from {names[1]}")
+
+
+def _gate_note(gate):
+    return ", a reading" if gate is None else f", gate {gate}"
 
 
 def _loss_and_grads(torch, loss_fn, leaves):
@@ -3338,10 +3383,387 @@ def _lut_yuv(torch, tk, luts, imgs, crop, dev):
           f"per batch = {mpix / ms * 1e3:.2f} MPix/s")
 
 
+#: Phase 16 (`_parallel`): how the port cuts an image or a batch.  A 4K
+#: and an 8K LR frame (3 x H x W, structured, seed 16) through the banded
+#: cascade (BAND_ROWS rows per band); band + bucket on MANY_SIZES frames;
+#: SHARDS row or batch shards of the card (`make_mesh(SHARDS, ["cuda:0"] *
+#: SHARDS)`); the net-mode batch of NET_SHARD_BATCH frames; data-parallel
+#: steps on DP_SHARDS shards at phase 13's reference width.
+FRAME_4K, FRAME_8K, BAND_ROWS = (2160, 3840), (4320, 7680), 256
+MANY_SIZES = [(1100, 1900), (1080, 1440), (720, 1280), (1000, 1900),
+              (540, 960), (333, 500)]
+MANY_BUCKET, MANY_BAND = 64, 128
+SHARDS, NET_SHARD_BATCH, DP_SHARDS = 4, 7, 2
+#: rows each side of a sampled 8K band that its independent check reads
+BAND_CHECK_MARGIN = 64
+#: the 2-shard fine-tune step's float32 gradients against one device's,
+#: relative to each tensor's max: the split changes the order of the
+#: stage-2 tables' float32 sums (read 3.853e-06-3.984e-06 on the `_ftr2`
+#: tables, 1.459e-06-1.511e-06 on random ones); with every value in
+#: float64 the split and unsplit gradients and losses agree to
+#: DP_F64_REL (a wrong shard weight or a lost shard is off by O(1))
+DP_FT_GRAD_REL, DP_F64_REL = 2e-5, 1e-12
+
+
+def _frame(rng, h, w):
+    """A structured (H, W, 3) uint8 frame (`data.synthetic._synth_image`,
+    as phase 13's frames)."""
+    from mulut_tpu_torch.data.synthetic import _synth_image
+
+    return _synth_image(rng, max(h, w))[:h, :w]
+
+
+def _peak_ms(torch, fn, reps, card):
+    """`fn()`'s peak device memory (GiB, everything resident included; not
+    measured on the CPU) and its device ms over `reps` calls."""
+    peak = None
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fn()
+    if card:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return peak, _cuda_ms(torch, fn, reps)
+
+
+def _gib(peak):
+    return "not measured (CPU)" if peak is None else f"{peak:.3f} GiB"
+
+
+def _counted(torch, tk, uk, sx, run):
+    """`run()` with every launch counter set to 0 just before and read
+    just after, and the plain contraction bodies counted: (result, K1/K2
+    launches, unit-kernel launches, plain calls)."""
+    _reset(tk.LAUNCHES, uk.LAUNCHES)
+    with _plain_calls(tk, sx) as plain:
+        out = run()
+    return out, dict(tk.LAUNCHES), dict(uk.LAUNCHES), dict(plain)
+
+
+def _lut_launch_gate(what, card, launches, plain, window, tail):
+    print(f"{what}: launches {launches}, plain contraction calls {plain}")
+    want = {"gather_fold_contract": 0, "window_fold_contract": window,
+            "tail_assemble": tail}
+    if card and (launches != want or any(plain.values())):
+        raise RuntimeError(f"{what}: launches {launches} and plain calls "
+                           f"{plain}; expected {want} and none")
+
+
+def _parallel(torch, tk, imgs, *, dev="cuda"):
+    """Phase 16: the banded cascade, band + bucket, the row- and
+    batch-sharded paths and the data-parallel steps on the card (module
+    docstring).  `dev` exists for a rehearsal on the CPU at a small size
+    (module constants shrunk, `_cuda_ms` and the `torch.cuda` calls
+    stubbed); the card run takes the default."""
+    import tempfile
+
+    from mulut_tpu_torch.data import DIV2K
+    from mulut_tpu_torch.dryrun import STEP_ATOL, dryrun_multidevice
+    from mulut_tpu_torch.models import lut_model as lm
+    from mulut_tpu_torch.models.srnet import init_srnets, srnets_predict_fast
+    from mulut_tpu_torch.models.torch_import import load_params_npz
+    from mulut_tpu_torch.ops import ensemble as ens
+    from mulut_tpu_torch.ops import simplex as sx
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.parallel import (
+        cascade_row_sharded,
+        data_parallel_grads,
+        make_mesh,
+        net_row_sharded,
+        replicate_tree,
+        tree_leaves,
+    )
+    from mulut_tpu_torch.pipelines import finetune as ftm
+    from mulut_tpu_torch.pipelines import train as trm
+    from mulut_tpu_torch.pipelines import transfer as tfm
+    from mulut_tpu_torch.pipelines.evaluate import LutEvaluator, NetEvaluator
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    ncfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    cfg = dict(ncfg, interval=INTERVAL)
+    luts = _random_luts(np.random.default_rng(0), INTERVAL)   # phase 3's
+    rng = np.random.default_rng(16)
+    halo = ens.cascade_halo(STAGES, MODES)
+
+    # 16.1 the 4K frame: banded against untiled
+    h4, w4 = FRAME_4K
+    frame = _frame(rng, h4, w4)
+    slabs4 = len(ens.slab_bounds(h4, BAND_ROWS, halo)[1])
+    banded = LutEvaluator(luts, band=BAND_ROWS, device=dev, **cfg)
+    untiled = LutEvaluator(luts, max_batch_pixels=3 * h4 * w4, device=dev,
+                           **cfg)
+    x4 = torch.from_numpy(np.ascontiguousarray(frame.transpose(2, 0, 1))).to(
+        dev)
+    read = {}
+    for name, ev, window, tail in (("banded", banded, 6 * slabs4, slabs4),
+                                   ("untiled", untiled, 6, 1)):
+        out, launches, _, plain = _counted(torch, tk, uk, sx,
+                                           lambda: ev.upscale(frame))
+        _lut_launch_gate(f"4K {name} upscale {frame.shape}", card, launches,
+                         plain, window, tail)
+        peak, ms = _peak_ms(torch, lambda: ev._cascade(x4), 3, card)
+        read[name] = (out, peak, ms)
+        print(f"4K {name}: {ms:.3f} ms on the card (CUDA events), peak "
+              f"memory {_gib(peak)}, output {out.shape} {out.dtype}")
+    if not np.array_equal(read["banded"][0], read["untiled"][0]):
+        raise RuntimeError("4K: banded and untiled differ in "
+                           f"{int((read['banded'][0] != read['untiled'][0]).sum())}"
+                           " bytes")
+    ratio = read["banded"][2] / read["untiled"][2]
+    print(f"4K band={BAND_ROWS}: bytes equal to the untiled cascade; "
+          f"{slabs4} slabs; banded/untiled ms {ratio:.4f}")
+    ref4 = read["untiled"][0]
+    peak4 = read["untiled"][1]
+    del read, untiled
+    if card:
+        torch.cuda.empty_cache()
+
+    # 16.2 the 8K frame, banded only
+    h8, w8 = FRAME_8K
+    frame8 = _frame(rng, h8, w8)
+    x8 = torch.from_numpy(np.ascontiguousarray(frame8.transpose(2, 0, 1))).to(
+        dev)
+    slab_h, bounds8 = ens.slab_bounds(h8, BAND_ROWS, halo)
+    out8, launches, _, plain = _counted(torch, tk, uk, sx,
+                                        lambda: banded._cascade(x8))
+    _lut_launch_gate(f"8K banded {tuple(x8.shape)}", card, launches, plain,
+                     6 * len(bounds8), len(bounds8))
+    peak8, ms8 = _peak_ms(torch, lambda: banded._cascade(x8), 2, card)
+    mpix8 = h8 * SCALE * w8 * SCALE / 1e6
+    print(f"8K banded: {ms8:.3f} ms on the card (CUDA events) = "
+          f"{mpix8 / ms8 * 1e3:.2f} MPix/s, {len(bounds8)} slabs of {slab_h} "
+          f"rows, peak memory {_gib(peak8)} (4K untiled {_gib(peak4)})")
+    if card and not peak8 < peak4:
+        raise RuntimeError("8K banded peak memory is not below the 4K "
+                           "untiled peak")
+    for i in (0, len(bounds8) // 2, len(bounds8) - 1):
+        kept0 = bounds8[i][0]
+        lo = max(0, kept0 - BAND_CHECK_MARGIN)
+        hi = min(h8, kept0 + BAND_ROWS + BAND_CHECK_MARGIN)
+        ref = banded._untiled(x8[:, lo:hi])
+        ref = ref[:, (kept0 - lo) * SCALE:(kept0 - lo + BAND_ROWS) * SCALE]
+        got = out8[:, kept0 * SCALE:(kept0 + BAND_ROWS) * SCALE]
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"8K band {i} (rows {kept0}-"
+                               f"{kept0 + BAND_ROWS}) differs from the "
+                               "untiled cascade")
+        print(f"8K band {i} (rows {kept0}-{kept0 + BAND_ROWS}): bytes equal "
+              f"to the untiled cascade on rows {lo}-{hi}")
+    del out8, x8, frame8
+    if card:
+        torch.cuda.empty_cache()
+
+    # 16.3 band with bucket
+    frames = [_frame(rng, h, w) for h, w in MANY_SIZES]
+    both = LutEvaluator(luts, bucket=MANY_BUCKET, band=MANY_BAND, device=dev,
+                        **cfg)
+    bucketed = LutEvaluator(luts, bucket=MANY_BUCKET, device=dev, **cfg)
+    t0 = time.perf_counter()
+    got, launches, _, plain = _counted(torch, tk, uk, sx,
+                                       lambda: both.upscale_many(frames))
+    t_both = (time.perf_counter() - t0) * 1e3
+    print(f"band {MANY_BAND} + bucket {MANY_BUCKET}, {len(frames)} frames up "
+          f"to {max(MANY_SIZES)}: launches {launches}, plain contraction "
+          f"calls {plain}, {t_both:.1f} ms (host clock, one call)")
+    if card and (not launches["window_fold_contract"]
+                 or not launches["tail_assemble"] or any(plain.values())):
+        raise RuntimeError("band + bucket: K1 or K2 not launched, or a "
+                           "plain contraction ran")
+    t0 = time.perf_counter()
+    want = bucketed.upscale_many(frames)
+    t_bucket = (time.perf_counter() - t0) * 1e3
+    for i, (g, w_) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w_):
+            raise RuntimeError(f"band + bucket: frame {i} {frames[i].shape} "
+                               "differs from bucket alone")
+    print(f"band + bucket: bytes equal to bucket alone ({t_bucket:.1f} ms, "
+          "host clock, one call)")
+    del both, bucketed, got, want, frames
+
+    # 16.4 the row-sharded cascade
+    mesh = make_mesh(SHARDS, [dev] * SHARDS)
+    xb = torch.from_numpy(np.ascontiguousarray(imgs.transpose(0, 3, 1, 2))).to(
+        dev)
+    for what, x, want in (("bench batch", xb, None), ("4K frame", x4, ref4)):
+        got, launches, _, plain = _counted(
+            torch, tk, uk, sx, lambda: cascade_row_sharded(
+                mesh, banded.luts, x, expanded=True, **cfg))
+        _lut_launch_gate(f"row-sharded {what} {tuple(x.shape)} over "
+                         f"{SHARDS} shards", card, launches, plain,
+                         6 * SHARDS, SHARDS)
+        if want is None:
+            want = banded._untiled(x)
+        else:
+            want = torch.from_numpy(want.transpose(2, 0, 1)).to(dev)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"row-sharded {what}: "
+                               f"{int((got != want).sum())} bytes differ from "
+                               "the unsharded cascade")
+        def sharded():
+            return cascade_row_sharded(mesh, banded.luts, x, expanded=True,
+                                       **cfg)
+
+        ms = _cuda_ms(torch, sharded, 3)
+        ms1 = _cuda_ms(torch, lambda: banded._untiled(x), 3)
+        print(f"row-sharded {what}: bytes equal to the unsharded packed "
+              f"cascade; {ms:.3f} ms on one card in {SHARDS} shards "
+              f"(unsharded {ms1:.3f})")
+        if card and what == "bench batch":
+            _profile(torch, sharded, ms, top=8,
+                     what=f"row-sharded {what}")
+    del banded, x4, ref4
+    if card:
+        torch.cuda.empty_cache()
+
+    # 16.5 net-mode shards on the _ftr2 weights (K3)
+    params = load_params_npz(NET_WEIGHTS)
+    one = NetEvaluator(params, fast=True, device=dev, **ncfg)
+    xf = xb.float() / 255.0
+    got, _, ulaunch, _ = _counted(torch, tk, uk, sx, lambda: net_row_sharded(
+        mesh, None, xf, fast_stacked=one.stacked, **ncfg))
+    _k3_gate("net_row_sharded", card, ulaunch, 2 * SHARDS)
+    want = srnets_predict_fast(one.stacked, xf, **ncfg)
+    _net_equal(torch, "net_row_sharded", got, want)
+    many = NetEvaluator(params, fast=True, device=mesh, **ncfg)
+    sub = imgs[:NET_SHARD_BATCH]
+    for entry in ("upscale_batch", "upscale_yuv_batch"):
+        got, _, ulaunch, _ = _counted(torch, tk, uk, sx,
+                                      lambda: getattr(many, entry)(sub))
+        _k3_gate(f"NetEvaluator({SHARDS} shards).{entry} B={len(sub)}", card,
+                 ulaunch, 2 * SHARDS)
+        want = getattr(one, entry)(sub)
+        _net_equal(torch, f"NetEvaluator({SHARDS} shards).{entry}",
+                   torch.from_numpy(got), torch.from_numpy(want))
+    del one, many, xf, xb
+
+    # 16.6 data-parallel steps on DP_SHARDS shards, phase 13's setup: the
+    # reference width, and the _ftr2 units' tables to fine-tune
+    mesh2 = make_mesh(DP_SHARDS, [dev] * DP_SHARDS)
+    with tempfile.TemporaryDirectory() as root:
+        _synthetic_div2k(root, images=TRAIN["images"], hr=TRAIN["hr"])
+        im, lb = DIV2K(SCALE, root, TRAIN["crop"], seed=0).sample_batch(
+            TRAIN["batch"])
+    im, lb = torch.from_numpy(im).to(dev), torch.from_numpy(lb).to(dev)
+    net = init_srnets(np.random.default_rng(0), nf=TRAIN["nf"], arch="dense",
+                      **ncfg)
+
+    def tables_of(arrays):
+        w = lm.init_lut_weights_from_arrays(arrays, upscale=SCALE,
+                                            device=dev, modes=MODES,
+                                            stages=STAGES)
+        for t in w.values():
+            t.requires_grad_(True)
+        return w
+
+    def step_io(make, tree, m):
+        """One step of `make(optimizer, m)` from a copy of `tree` on the
+        mesh `m` (its first device holding the batch): (loss, grads) and
+        the updated leaves."""
+        reps = replicate_tree(m, tree)
+        leaves = tree_leaves(reps[0])
+        step = make(trm.make_optimizer(leaves, 1e-3, 1e-4, 100), m)
+        loss = float(step(reps if len(m) > 1 else reps[0], im.to(m[0]),
+                          lb.to(m[0])))
+        return ((loss, {i: t.grad.cpu() for i, t in enumerate(leaves)}),
+                [t.detach().cpu() for t in leaves])
+
+    # i / 255 in float64 by the host's true division: the cascade's
+    # `x * 255` gives each pixel back exactly (the card divides by a
+    # scalar as a multiply by its reciprocal, which misses 24 of the 256
+    # and leaves each tie of the stage mix to the order of a sum)
+    unit64 = (torch.arange(256, dtype=torch.float64) / 255.0).to(dev)
+
+    def loss64(w, im, lb):
+        """The fine-tune loss with every value in float64."""
+        pred = lm.lut_model_forward(w, unit64[im.long()], modes=MODES,
+                                    stages=STAGES, upscale=SCALE,
+                                    interval=INTERVAL, device=im.device)
+        return torch.mean((pred - unit64[lb.long()]) ** 2)
+
+    def grads64(tree, m):
+        """(loss, grads) of `loss64` on a float64 copy of `tree` through
+        `data_parallel_grads` over the mesh `m`."""
+        reps = replicate_tree(m, {k: t.detach().double().requires_grad_(True)
+                                  for k, t in tree.items()})
+        loss = data_parallel_grads(m, reps, loss64, im.to(m[0]), lb.to(m[0]))
+        return float(loss), {i: t.grad.cpu() for i, t in
+                             enumerate(tree_leaves(reps[0]))}
+
+    def ft_make(o, m):
+        return ftm.make_finetune_step(o, upscale=SCALE, interval=INTERVAL,
+                                      mesh=m, modes=MODES, stages=STAGES)
+
+    names = (f"{DP_SHARDS} shards", "one device")
+    host2 = [torch.device("cpu")] * DP_SHARDS
+    ftr2 = tfm.transfer_to_luts(params, modes=MODES, stages=STAGES,
+                                interval=INTERVAL, device=dev)
+    for what, tree, loss_rel, grad_rel, make in (
+            ("train step", trm.trainable(net, dev), TRAIN_LOSS_REL,
+             TRAIN_GRAD_REL, lambda o, m: trm.make_train_step(
+                 o, mesh=m, **ncfg)),
+            ("fine-tune step, _ftr2 tables", tables_of(ftr2), FT_LOSS_REL,
+             DP_FT_GRAD_REL, ft_make)):
+        (shards, p_shards), (one, p_one) = (step_io(make, tree, mesh2),
+                                            step_io(make, tree, mesh2[:1]))
+        _grad_gate(f"{what}, one device again vs first",
+                   step_io(make, tree, mesh2[:1])[0], one, None, None,
+                   ("again", "first"))
+        _grad_gate(f"{what}, {names[0]} vs {names[1]}", shards, one,
+                   loss_rel, grad_rel, names)
+        if "fine-tune" in what:
+            _grad_gate(f"{what}, {names[0]}: card vs CPU",
+                       shards, step_io(make, tree, host2)[0], FT_LOSS_REL,
+                       FT_GRAD_REL)
+            _grad_gate(f"{what} in float64, {names[0]} vs {names[1]}",
+                       grads64(tree, mesh2), grads64(tree, mesh2[:1]),
+                       DP_F64_REL, DP_F64_REL, names)
+        off = max(float((a - b).abs().max()) for a, b in zip(p_shards, p_one))
+        print(f"{what}: params after the step, {names[0]} vs {names[1]}: "
+              f"max |diff| {off:.3e} (gate {STEP_ATOL})")
+        if not off <= STEP_ATOL:
+            raise RuntimeError(f"{what}: updated params depart")
+    # readings on phase 3's random tables (loss ~0.3, far from trained)
+    rand = tables_of(luts)
+    _grad_gate(f"fine-tune step, random tables, {names[0]} vs {names[1]}",
+               step_io(ft_make, rand, mesh2)[0],
+               step_io(ft_make, rand, mesh2[:1])[0], None, None, names)
+    del params
+
+    # 16.7 the dry run
+    done = dryrun_multidevice(SHARDS, [dev] * SHARDS)
+    print(f"dryrun_multidevice({SHARDS}, [{str(dev)!r}] * {SHARDS}): "
+          + "; ".join(done))
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _k3_gate(what, card, ulaunch, count):
+    print(f"{what}: unit-kernel launches {ulaunch}")
+    if card and ulaunch != _only(ulaunch, "stage_ensemble_apply_w", count):
+        raise RuntimeError(f"{what}: expected {count} K3 launches only")
+
+
+def _net_equal(torch, what, got, want):
+    """Net-mode outputs byte for byte (uint8 after the evaluators' clip
+    and round); on a difference, the first differing element."""
+    g, w = got, want
+    if g.dtype != torch.uint8:
+        g = torch.round(torch.clamp(g.float(), 0, 255)).to(torch.uint8)
+        w = torch.round(torch.clamp(w.float(), 0, 255)).to(torch.uint8)
+    if g.shape != w.shape or not torch.equal(g, w):
+        first = (torch.nonzero(g != w)[0].tolist() if g.shape == w.shape
+                 else f"shapes {tuple(g.shape)} {tuple(w.shape)}")
+        raise RuntimeError(f"{what}: differs from the unsharded card forward "
+                           f"(first differing element {first})")
+    print(f"{what}: {tuple(g.shape)} bytes equal to the unsharded forward")
+
+
 def _phase_only(phase) -> int:
-    """`--training`, `--nf256` and `--lut-rank`: the card, the kernel build
-    (with ptxas's report for `--nf256` and `--lut-rank`) and phase 13, 14
-    or 15 alone."""
+    """`--training`, `--nf256`, `--lut-rank` and `--parallel`: the card,
+    the kernel build (with ptxas's report for `--nf256` and `--lut-rank`)
+    and phase 13, 14, 15 or 16 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3358,6 +3780,8 @@ def _phase_only(phase) -> int:
         np.uint8)
     if phase == "training":
         _training_half(torch, tk, imgs)
+    elif phase == "parallel":
+        _parallel(torch, tk, imgs)
     elif phase == "lut-rank":
         _ptxas_report({k: v for k, v in logs.items()
                        if k in ("window_fold", "fold_contract")})
@@ -3376,7 +3800,8 @@ if __name__ == "__main__":
         sys.exit(_ab(ab[sys.argv[1]], sys.argv[2:]))
     if sys.argv[1:2] == ["--sass"]:
         sys.exit(_sass(sys.argv[2:]))
-    if sys.argv[1:2] in (["--training"], ["--nf256"], ["--lut-rank"]):
+    if sys.argv[1:2] in (["--training"], ["--nf256"], ["--lut-rank"],
+                         ["--parallel"]):
         sys.exit(_phase_only(sys.argv[1][2:]))
     if sys.argv[1:2] == ["--ab-one"]:
         one = {"plain": _plain_ab_one, "w8a8": _w8a8_ab_one}[sys.argv[2]]

@@ -8,6 +8,8 @@ kernels of `ops.unit_kernel`).  Slice 3: W8A8 net mode
 the kernels' other routes and their redesigns for the card.  Slice 10: the
 training half, steps 1-3 as PyTorch ops (`pipelines.train`,
 `pipelines.transfer`, `pipelines.finetune`, `models.lut_model`, `data`).
+Slice 13: how an image or a batch is cut: row bands (`band`) and shards
+over several devices (`parallel`, `n_devices`, `gpuNum`, `dryrun`).
 The kernels are hand-written CUDA in `ops/csrc/`.  Imports torch, numpy
 and scipy; PIL only inside the functions that read or write images.
 """

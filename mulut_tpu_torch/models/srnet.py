@@ -159,7 +159,7 @@ def srnets_predict(params: dict, x: torch.Tensor, *, modes: str, stages: int,
     if train and bf16:
         raise NotImplementedError(
             "the train phase runs float32 (trainPrecision='bf16' is ROADMAP "
-            "Queue A item 7's remainder)")
+            "Queue A item 6)")
     rnd = round_ste if train else torch.round
     M = len(modes)
     for s in range(stages):

@@ -17,8 +17,11 @@ reference engine over raw (L**4, v) tables (`expanded=False`) is torch
 arithmetic.  The rotation un-shifts, stage mixes and the PixelShuffle
 interleave are torch ops.
 
-Torch twin of `mulut_tpu.ops.ensemble` (without `lut_cascade_banded` and
-the disk cache).
+`lut_cascade_banded` runs the cascade over row slabs of a large image
+(`run_banded`, shared with the packed banded form in `tail_kernel` and the
+row-sharded cascade in `parallel.spatial`).
+
+Torch twin of `mulut_tpu.ops.ensemble` (without the disk cache).
 """
 
 from __future__ import annotations
@@ -320,10 +323,15 @@ def clamp_pad_region(img: torch.Tensor, valid_hw) -> torch.Tensor:
     h, w = valid_hw
     Hb, Wb = img.shape[-2], img.shape[-1]
     dev = img.device
-    h = torch.as_tensor(h, device=dev).to(torch.int64)
-    w = torch.as_tensor(w, device=dev).to(torch.int64)
     ar_h = torch.arange(Hb, device=dev)
     ar_w = torch.arange(Wb, device=dev)
+    if not torch.is_tensor(h) and np.ndim(h) == 0 and np.ndim(w) == 0:
+        # host scalars: no copy to the device (and no wait for it)
+        rows = ar_h.clamp_(max=int(h) - 1)
+        cols = ar_w.clamp_(max=int(w) - 1)
+        return img.index_select(-2, rows).index_select(-1, cols)
+    h = torch.as_tensor(h, device=dev).to(torch.int64)
+    w = torch.as_tensor(w, device=dev).to(torch.int64)
     if h.ndim == 0:
         rows = torch.minimum(ar_h, h - 1)
         cols = torch.minimum(ar_w, w - 1)
@@ -394,3 +402,81 @@ def tables_from_numpy(tabs: dict, device) -> dict:
     return {k: torch.as_tensor(np.ascontiguousarray(np.asarray(t)),
                                device=device)
             for k, t in tabs.items()}
+
+
+def cascade_halo(stages: int, modes: str) -> int:
+    """Rows of context the cascade reads beyond a band, per side: the
+    widest mode's tap pad, once per stage."""
+    return stages * max(mode_pad(m) for m in modes)
+
+
+def slab_bounds(h: int, band: int, halo: int):
+    """Clamped slabs over `h` rows: `slab_h` (band + 2 * halo, at most h)
+    and, per band of `band` kept rows, (kept0, start): its first kept row
+    and its slab's first row, the slab clamped into the image so that a
+    true image edge is a slab edge (where the cascade's own edge padding
+    applies); a last band that does not fit overlaps the one before it."""
+    slab_h = min(band + 2 * halo, h)
+    bounds = []
+    for i in range(-(-h // band)):
+        kept0 = min(i * band, h - band)
+        bounds.append((kept0, min(max(kept0 - halo, 0), h - slab_h)))
+    return slab_h, bounds
+
+
+def slab_valid(valid_hw, start: int, slab_h: int):
+    """A slab's `valid_hw`: rows `valid_h - start` of the slab, at least 1
+    (a slab wholly in the pad region is cropped off anyway), clamping the
+    full buffer then slicing a slab being equal to slicing then clamping
+    locally."""
+    if valid_hw is None:
+        return None
+    vh, vw = valid_hw
+    if not torch.is_tensor(vh) and np.ndim(vh) == 0:
+        return min(max(int(vh) - start, 1), slab_h), vw
+    return torch.clamp(torch.as_tensor(vh) - start, 1, slab_h), vw
+
+
+def run_banded(run, img, *, band: int, halo: int, scale: int,
+               valid_hw=None) -> torch.Tensor:
+    """`run(slab, slab_valid_hw)`, a cascade (..., h, W) -> (..., h*scale,
+    W*scale) with values in [0, 255], over the clamped slabs of
+    `slab_bounds`; each band's kept rows go into one preallocated uint8
+    (..., H*scale, W*scale) output on `img`'s device.  The cascade's
+    receptive field is `halo` rows, so a band's rows equal the untiled
+    cascade's.  An image no taller than one slab runs whole."""
+    h, w = img.shape[-2], img.shape[-1]
+    if h <= band + 2 * halo:
+        return run(img, valid_hw).to(torch.uint8)
+    slab_h, bounds = slab_bounds(h, band, halo)
+    out = torch.empty(tuple(img.shape[:-2]) + (h * scale, w * scale),
+                      dtype=torch.uint8, device=img.device)
+    for kept0, start in bounds:
+        o = run(img.narrow(-2, start, slab_h),
+                slab_valid(valid_hw, start, slab_h))
+        out.narrow(-2, kept0 * scale, band * scale).copy_(
+            o.narrow(-2, (kept0 - start) * scale, band * scale))
+    return out
+
+
+def lut_cascade_banded(luts: dict, img, *, stages: int, modes: str,
+                       scale: int, interval: int = 4, expanded: bool = False,
+                       fused: bool = True, band: int = 128, valid_hw=None):
+    """Row-banded `lut_cascade_int` for large single images: bands of
+    `band` rows, each computed in a slab with `cascade_halo` context rows
+    per side clamped into the image (`run_banded`), bytes equal to the
+    untiled cascade; the slab temporaries do not grow with the image.
+
+    Same signature as `mulut_tpu`'s `lut_cascade_banded`; `valid_hw` (h, w)
+    scalars or (B,) vectors compose with the bands through each slab's
+    local validity (`slab_valid`).  Returns (..., H*scale, W*scale)
+    uint8 (the JAX package returns the same values as int32).
+    """
+    def run(slab, valid):
+        return lut_cascade_int(luts, slab, stages=stages, modes=modes,
+                               scale=scale, interval=interval,
+                               expanded=expanded, fused=fused,
+                               valid_hw=valid)
+
+    return run_banded(run, img, band=band, halo=cascade_halo(stages, modes),
+                      scale=scale, valid_hw=valid_hw)

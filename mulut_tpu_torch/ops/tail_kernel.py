@@ -604,8 +604,18 @@ def lut_cascade_packed(tabs, img, *, stages: int, modes: str, scale: int,
     [0, 255]; channels ride the leading dims.  valid_hw: optional (h, w)
     scalars or (B,) vectors for bucketed evaluation (see
     `ensemble.clamp_pad_region`).
-    Byte-identical to `mulut_tpu`'s `lut_cascade_packed`.
+    Byte-identical to `mulut_tpu`'s `lut_cascade_packed`.  Raises
+    ValueError on a non-symmetric mode's final-stage table that is a
+    per-rotation stack (the defaults of `prepare_expanded_luts`, whose
+    baked-in lane un-rotation the tail would repeat).
     """
+    for m in modes:
+        lut = tabs[f"s{stages}_{m}"]
+        if fold_geometry(m) is None and lut.dim() != 2:
+            raise ValueError(
+                f"lut_cascade_packed: s{stages}_{m} is a per-rotation stack "
+                f"{tuple(lut.shape)}; the packed cascade takes one shared "
+                "table (ops.ensemble.KERNEL_FORMATS, shared_quad=True)")
     q = 2 ** interval
     x = img.to(torch.int32)
     for s in range(stages - 1):
@@ -653,6 +663,30 @@ def lut_cascade_packed(tabs, img, *, stages: int, modes: str, scale: int,
         folded, quads, lead=x.shape[:-2], h=x.shape[-2], w=x.shape[-1],
         scale=scale, davg=q * len(modes),
     )
+
+
+def lut_cascade_u8(tabs, img, **kw):
+    """`lut_cascade_packed` unpacked on the device: (..., H*scale,
+    W*scale) uint8 (a view of the packed words)."""
+    packed = lut_cascade_packed(tabs, img, **kw)
+    return unpack_u32_device(packed, img.shape[:-2], img.shape[-2],
+                             img.shape[-1], kw["scale"])
+
+
+def lut_cascade_packed_banded(tabs, img, *, stages: int, modes: str,
+                              scale: int, interval: int = 4, band: int = 128,
+                              valid_hw=None):
+    """The packed cascade over row slabs (`ensemble.run_banded`): K1 and
+    K2 on every slab, each slab unpacked on the device and its kept rows
+    written into one uint8 (..., H*scale, W*scale) output, bytes equal to
+    the untiled cascade.  Arguments as `ensemble.lut_cascade_banded`."""
+    def run(slab, valid):
+        return lut_cascade_u8(tabs, slab, stages=stages, modes=modes,
+                              scale=scale, interval=interval, valid_hw=valid)
+
+    return ens.run_banded(run, img, band=band,
+                          halo=ens.cascade_halo(stages, modes), scale=scale,
+                          valid_hw=valid_hw)
 
 
 def unpack_u32_device(packed, lead, h: int, w: int, scale: int):

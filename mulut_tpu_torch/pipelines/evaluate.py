@@ -7,12 +7,15 @@ Torch twins of `mulut_tpu.pipelines.evaluate`:
   scales and intervals, over the expanded int8 tables, byte-identical to
   the reference NumPy engine (ref: sr/4_test_lut.py:263-306), and its
   device YUV pipeline.  Replaces the reference's per-image process fan-out
-  (ref: sr/4_test_lut.py:257-259) with the card's batch dimension.
+  (ref: sr/4_test_lut.py:257-259) with the card's batch dimension; large
+  images stream through row slabs (`band`), bucketed batches shard over
+  several devices (`n_devices`).
 - `NetEvaluator`, net mode: the trained tap-MLP units run directly (no LUT
   caching), in float32 (`models.srnet.srnets_predict`) or, with
   `fast=True`, in bf16 through one stage-ensemble kernel launch per stage
   (`models.srnet.srnets_predict_fast`), or with `quant` as W8A8 int8
-  units (`ops.quant`) through the same forward.
+  units (`ops.quant`) through the same forward; batches shard over
+  several devices (`n_devices`).
 """
 
 from __future__ import annotations
@@ -36,17 +39,18 @@ from ..models.torch_import import (
 )
 from ..ops.ensemble import (
     KERNEL_FORMATS,
+    lut_cascade_banded,
     lut_cascade_int,
     prepare_expanded_luts,
 )
 from ..ops.quant import quantize_srnets_for_fast
 from ..ops.resize import bicubic_upscale, full_f32_matmul
 from ..ops.tail_kernel import (
-    lut_cascade_packed,
+    lut_cascade_packed_banded,
+    lut_cascade_u8,
     supports_tail_kernel,
-    unpack_u32_device,
 )
-from ..utils.device import resolve_device
+from ..parallel.mesh import mesh_for, pad_batch, replicate_tree, shard_batch
 from ..utils.lut_io import load_luts
 from ..utils.metrics import _YCBCR_O, _YCBCR_T
 
@@ -97,6 +101,24 @@ class LutEvaluator:
     runs the window-read kernel K1.  `device=None` means the CUDA card (and
     raises where there is none); `device="cpu"` runs every kernel's plain
     torch version.
+
+    `band > 0` runs the cascade over row slabs of `band` rows
+    (`ops.tail_kernel.lut_cascade_packed_banded` on the packed path,
+    `ops.ensemble.lut_cascade_banded` on the other), so an image above the
+    untiled pixel cap streams with bounded temporaries into a uint8 output
+    on the device; it composes with `bucket` through each slab's local
+    valid extents, with the untiled cascade's bytes.  `upscale_yuv_batch`
+    stays untiled and keeps its cap, as in the JAX package.
+
+    `n_devices > 1` shards each bucketed dispatch (`upscale_many`) over
+    the batch: the tables are replicated on each device of the mesh
+    (`parallel.mesh.mesh_for`: on the card the first `n_devices` CUDA
+    devices, clamped to the count; with `device="cpu"` that many CPU
+    shards; or a list of devices given as `device`, all of it, with
+    `n_devices` left None or equal to its length), the batch padded to a
+    device multiple with replicas of its last image and cut into one
+    shard per device; bytes equal to one device.  `n_devices=None` is one
+    device, or the whole of a list.
     """
 
     #: Default cap on input pixels per dispatch (batch x Hb x Wb): the
@@ -105,45 +127,61 @@ class LutEvaluator:
 
     def __init__(self, luts: dict, *, stages: int, modes: str, scale: int,
                  interval: int = 4, bucket: int = 0, band: int = 0,
-                 max_batch_pixels: int | None = None, n_devices: int = 1,
+                 max_batch_pixels: int | None = None, n_devices: int | None = None,
                  device=None):
-        if band:
-            raise NotImplementedError(
-                "band > 0 (row-slab streaming, lut_cascade_banded) is a "
-                "later slice of the port")
-        if n_devices > 1:
-            raise NotImplementedError(
-                "n_devices > 1 (batch sharding over several cards) is a "
-                "later slice of the port")
         self.stages = stages
         self.modes = modes
         self.scale = scale
         self.interval = interval
         self.bucket = bucket
+        self.band = band
         self.max_batch_pixels = max_batch_pixels or self.MAX_BATCH_PIXELS
-        self.device = resolve_device(device, "LutEvaluator")
+        self.mesh = mesh_for(device, n_devices, "LutEvaluator")
+        self.n_devices = len(self.mesh)
+        self.device = self.mesh[0]
         self.kernel = supports_tail_kernel(modes, scale, interval=interval)
         # built on the device from the ~4 MB of source LUTs
-        self.luts = prepare_expanded_luts(
+        tabs = prepare_expanded_luts(
             luts, interval=interval, device=self.device,
             **(KERNEL_FORMATS if self.kernel else {}))
+        self._replicas = (replicate_tree(self.mesh, tabs)
+                          if self.n_devices > 1 else [tabs])
+        self.luts = self._replicas[0]
 
-    def _cascade(self, img: torch.Tensor, valid_hw=None) -> torch.Tensor:
+    def _untiled(self, img: torch.Tensor, valid_hw=None,
+                 luts=None) -> torch.Tensor:
         """(..., H, W) uint8 on the device -> (..., H*scale, W*scale) uint8
-        on the device."""
+        on the device, in one pass over the image (`luts`: a replica of the
+        tables on img's device, default the first)."""
+        luts = self.luts if luts is None else luts
         kw = dict(stages=self.stages, modes=self.modes, scale=self.scale,
                   interval=self.interval, valid_hw=valid_hw)
         if self.kernel:
-            packed = lut_cascade_packed(self.luts, img, **kw)
-            return unpack_u32_device(packed, img.shape[:-2], img.shape[-2],
-                                     img.shape[-1], self.scale)
-        return lut_cascade_int(self.luts, img, expanded=True,
+            return lut_cascade_u8(luts, img, **kw)
+        return lut_cascade_int(luts, img, expanded=True,
                                **kw).to(torch.uint8)
 
+    def _cascade(self, img: torch.Tensor, valid_hw=None,
+                 luts=None) -> torch.Tensor:
+        """`_untiled`, over row slabs of `band` rows when band > 0."""
+        if not self.band:
+            return self._untiled(img, valid_hw, luts)
+        luts = self.luts if luts is None else luts
+        kw = dict(stages=self.stages, modes=self.modes, scale=self.scale,
+                  interval=self.interval, band=self.band, valid_hw=valid_hw)
+        if self.kernel:
+            return lut_cascade_packed_banded(luts, img, **kw)
+        return lut_cascade_banded(luts, img, expanded=True, **kw)
+
     def _exec(self, chw, valid_hw=None) -> np.ndarray:
-        """One untiled dispatch -> host uint8 (..., H*scale, W*scale);
-        `valid_hw` as in `ops.ensemble.clamp_pad_region`."""
+        """One dispatch -> host uint8 (..., H*scale, W*scale);
+        `valid_hw` as in `ops.ensemble.clamp_pad_region` (per-image vectors
+        go to the device once, not at every stage or slab)."""
         img = torch.from_numpy(np.ascontiguousarray(chw)).to(self.device)
+        if valid_hw is not None:
+            valid_hw = tuple(v if np.ndim(v) == 0
+                             else torch.as_tensor(v, device=self.device)
+                             for v in valid_hw)
         return np.ascontiguousarray(
             self._cascade(img, valid_hw).cpu().numpy())
 
@@ -155,7 +193,7 @@ class LutEvaluator:
     def from_folder(cls, lut_folder: str, *, stages: int = 2,
                     modes: str = "sdy", scale: int = 4, interval: int = 4,
                     lut_name: str = "LUT_ft", bucket: int = 0, band: int = 0,
-                    n_devices: int = 1, device=None):
+                    n_devices: int | None = None, device=None):
         luts = load_luts(lut_folder, stages=stages, modes=modes, scale=scale,
                          interval=interval, name=lut_name)
         return cls(luts, stages=stages, modes=modes, scale=scale,
@@ -240,8 +278,17 @@ class LutEvaluator:
 
     def _dispatch_bucketed(self, batch: np.ndarray, hs: np.ndarray,
                            ws: np.ndarray) -> np.ndarray:
-        """One bucketed dispatch on this evaluator's device."""
-        return self._exec_bucketed(batch, hs, ws)
+        """One bucketed dispatch, sharded over the batch when n_devices > 1
+        (the batch padded to a device multiple with replicas of its last
+        image, which are cropped off the result)."""
+        if self.n_devices == 1:
+            return self._exec_bucketed(batch, hs, ws)
+        n = batch.shape[0]
+        shards = shard_batch(self.mesh, *(pad_batch(a, self.n_devices)
+                                          for a in (batch, hs, ws)))
+        outs = [self._cascade(b, (h, w), luts)
+                for (b, h, w), luts in zip(shards, self._replicas)]
+        return np.concatenate([o.cpu().numpy() for o in outs])[:n]
 
     def upscale_yuv_batch(self, imgs_rgb: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) uint8 RGB -> (B, H*s, W*s, 3) uint8, one dispatch:
@@ -258,7 +305,7 @@ class LutEvaluator:
             self.device)
         ycc = _rgb_to_ycc(rgb)
         y = torch.clamp(torch.round(ycc[..., 0]), 0, 255).to(torch.uint8)
-        y_sr = self._cascade(y[:, None])[:, 0].float()
+        y_sr = self._untiled(y[:, None])[:, 0].float()
         return _ycc_to_rgb_einsum(y_sr, ycc, self.scale).cpu().numpy()
 
     def upscale_yuv(self, img_rgb: np.ndarray) -> np.ndarray:
@@ -267,12 +314,16 @@ class LutEvaluator:
         return self.upscale_yuv_batch(img_rgb[None])[0]
 
     def _check_untiled_size(self, hb: int, wb: int, channels: int) -> None:
-        """Refuse to run the untiled cascade past the pixel cap."""
+        """Refuse to run the untiled cascade past the pixel cap (banded
+        slabs bound the temporaries: no cap with band > 0)."""
+        if self.band:
+            return
         if hb * wb * channels > self.max_batch_pixels:
             raise ValueError(
                 f"image bucket {hb}x{wb} exceeds the untiled device-safe "
-                f"size ({self.max_batch_pixels} px); split the batch or "
-                "raise max_batch_pixels explicitly"
+                f"size ({self.max_batch_pixels} px); pass band>0 "
+                "(--evalBand) to stream it, or raise max_batch_pixels "
+                "explicitly"
             )
 
 
@@ -295,6 +346,13 @@ class NetEvaluator:
     raises where there is none); `device="cpu"` runs every kernel's plain
     torch version.  `params` is the JAX package's params layout, as NumPy
     arrays or tensors (`models.torch_import.params_from_numpy`).
+
+    `n_devices > 1` shards `upscale_batch` and `upscale_yuv_batch` over
+    the batch, the mesh as `LutEvaluator`'s (`parallel.mesh.mesh_for`):
+    the weights replicated on each device, the batch padded to a device
+    multiple with replicas of its last image, one shard per device through
+    the same route (the same kernel on the card), the replicas cropped
+    off; bytes equal to one device.
     """
 
     #: LR pixel count above which the f32 forward is band-tiled.
@@ -303,16 +361,14 @@ class NetEvaluator:
 
     def __init__(self, params: dict, *, stages: int, modes: str, scale: int,
                  fast: bool = False, quant: bool | str = False,
-                 n_devices: int = 1, device=None):
-        if n_devices > 1:
-            raise NotImplementedError(
-                "n_devices > 1 (batch sharding over several cards) is a "
-                "later slice of the port")
+                 n_devices: int | None = None, device=None):
         self.stages = stages
         self.modes = modes
         self.scale = scale
         self.fast = fast = bool(fast or quant)
-        self.device = resolve_device(device, "NetEvaluator")
+        self.mesh = mesh_for(device, n_devices, "NetEvaluator")
+        self.n_devices = len(self.mesh)
+        self.device = self.mesh[0]
         self.params = params_from_numpy(params, self.device)
         self.stacked = None
         if quant:
@@ -327,6 +383,10 @@ class NetEvaluator:
                 paired=os.environ.get("MULUT_PAIRED_KERNEL", "0") == "1")
         self._plain = fast and not quant and any(
             "hwt" in st for st in self.stacked)
+        weights = (self.params, self.stacked)
+        self._replicas = (replicate_tree(self.mesh, weights)
+                          if self.n_devices > 1 else [weights])
+        self.params, self.stacked = self._replicas[0]
 
     @property
     def _luma_clip(self):
@@ -343,7 +403,7 @@ class NetEvaluator:
     def from_checkpoint(cls, path: str, *, stages: int = 2,
                         modes: str = "sdy", scale: int = 4,
                         fast: bool = False, quant: bool | str = False,
-                        device=None):
+                        n_devices: int | None = None, device=None):
         """From a `save_params_npz` registry (.npz) or a reference
         PyTorch checkpoint (.pth)."""
         if path.endswith(".npz"):
@@ -352,16 +412,18 @@ class NetEvaluator:
             params = srnets_params_from_torch(path, modes=modes,
                                               stages=stages)
         return cls(params, stages=stages, modes=modes, scale=scale,
-                   fast=fast, quant=quant, device=device)
+                   fast=fast, quant=quant, n_devices=n_devices, device=device)
 
-    def _run(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, C, H, W) float32 in [0, 1] -> float32 SR values."""
+    def _run(self, x: torch.Tensor, weights) -> torch.Tensor:
+        """(B, C, H, W) float32 in [0, 1] -> float32 SR values, on
+        `weights` (a replica of (params, stacked) on x's device)."""
+        params, stacked = weights
         kw = dict(modes=self.modes, stages=self.stages, scale=self.scale)
         if self.fast:
-            return srnets_predict_fast(self.stacked, x, **kw).float()
-        return srnets_predict(self.params, x, **kw)
+            return srnets_predict_fast(stacked, x, **kw).float()
+        return srnets_predict(params, x, **kw)
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor, weights) -> torch.Tensor:
         """`_run`, band-tiled on the f32 path for large inputs (along
         whichever spatial axis is long enough).  The fast path holds no
         per-site activations in memory and never tiles."""
@@ -370,27 +432,38 @@ class NetEvaluator:
         if (not self.fast and h * w > self.TILE_THRESHOLD
                 and max(h, w) >= min_dim):
             return srnets_predict_tiled(
-                self.params, x, modes=self.modes, stages=self.stages,
+                weights[0], x, modes=self.modes, stages=self.stages,
                 scale=self.scale, band=self.BAND,
                 axis=2 if h >= min_dim else 3)
-        return self._run(x)
+        return self._run(x, weights)
 
-    def _upload(self, imgs: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
+    def _sharded(self, fn, imgs: np.ndarray) -> np.ndarray:
+        """`fn(batch on a device, weights there)` over the batch, one shard
+        per device of the mesh (padded with replicas of the last image,
+        cropped off) -> host array."""
+        n = imgs.shape[0]
+        if self.n_devices > 1:
+            imgs = pad_batch(imgs, self.n_devices)
+        shards = shard_batch(self.mesh, np.ascontiguousarray(imgs))
+        outs = [fn(x, w) for x, w in zip(shards, self._replicas)]
+        return np.concatenate([o.cpu().numpy() for o in outs])[:n]
 
     def upscale(self, img_lr: np.ndarray) -> np.ndarray:
         """(H, W, 3) uint8 LR -> (H*scale, W*scale, 3) uint8 SR."""
         return self.upscale_batch(img_lr[None])[0]
 
+    def _rgb(self, imgs: torch.Tensor, weights) -> torch.Tensor:
+        x = imgs.permute(0, 3, 1, 2).float() / 255.0
+        out = torch.round(torch.clamp(self._forward(x, weights), 0, 255))
+        return out.to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+
     def upscale_batch(self, imgs_lr: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) uint8 -> (B, H*scale, W*scale, 3) uint8 (one
-        same-shape dispatch; channels and batch ride the leading axes)."""
-        x = self._upload(imgs_lr).permute(0, 3, 1, 2).float() / 255.0
-        out = torch.round(torch.clamp(self._forward(x), 0, 255))
-        out = out.to(torch.uint8).permute(0, 2, 3, 1).contiguous()
-        return out.cpu().numpy()
+        same-shape dispatch per device; channels and batch ride the
+        leading axes)."""
+        return self._sharded(self._rgb, imgs_lr)
 
-    def _yuv(self, rgb: torch.Tensor) -> torch.Tensor:
+    def _yuv(self, rgb: torch.Tensor, weights) -> torch.Tensor:
         """(B, H, W, 3) uint8 RGB on the device -> (B, H*s, W*s, 3) uint8:
         luma through the cascade, chroma as two bicubic matmuls, the color
         transforms as per-channel plane FMAs (ref: sr/Test.py:317-398)."""
@@ -401,10 +474,11 @@ class NetEvaluator:
         x = y[:, None] * float(np.float32(1 / 255))
         if self._luma_clip is not None:
             y_sr = srnets_predict_fast(
-                self.stacked, x, modes=self.modes, stages=self.stages,
+                weights[1], x, modes=self.modes, stages=self.stages,
                 scale=self.scale, final_clip=self._luma_clip)[:, 0].float()
         else:
-            y_sr = torch.clamp(torch.round(self._forward(x)[:, 0]), 0, 255)
+            y_sr = torch.clamp(torch.round(self._forward(x, weights)[:, 0]),
+                               0, 255)
         cb, cr = _chroma_sr(ycc, self.scale)
         chans = []
         for o in range(3):
@@ -417,8 +491,9 @@ class NetEvaluator:
 
     def upscale_yuv_batch(self, imgs_rgb: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) uint8 RGB -> (B, H*s, W*s, 3) uint8: the device
-        YUV pipeline, one dispatch; the cascade sees one plane of three."""
-        return self._yuv(self._upload(imgs_rgb)).cpu().numpy()
+        YUV pipeline, one dispatch per device; the cascade sees one plane
+        of three."""
+        return self._sharded(self._yuv, imgs_rgb)
 
     def upscale_yuv(self, img_rgb: np.ndarray) -> np.ndarray:
         """(H, W, 3) uint8 RGB -> (H*s, W*s, 3) uint8 (see

@@ -4,7 +4,8 @@ Torch twin of `mulut_tpu.pipelines.finetune`: the int8 LUTs become float32
 trainables driven by the differentiable simplex cascade
 (`models.lut_model`); Adam + cosine LR (optax's arithmetic,
 `pipelines.train.OptaxAdam`) on DIV2K patches, PSNR/SSIM validation, int8
-re-export through `utils.lut_io`'s naming.
+re-export through `utils.lut_io`'s naming.  `gpuNum > 1` runs
+data-parallel steps over several devices, as `pipelines.train` does.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..models.lut_model import (
 from ..models.torch_import import load_opt_state_npz, save_opt_state_npz
 from ..ops.resize import full_f32_matmul
 from ..ops.unit_kernel import _INV255
-from ..utils.device import resolve_device
+from ..parallel.mesh import data_parallel_step, mesh_for, replicate_tree
 from ..utils.imgio import save_image
 from ..utils.logging_utils import logger_info
 from ..utils.lut_io import lut_filename, parse_stage_key
@@ -51,16 +52,29 @@ def finetune_loss(weights: dict, im: torch.Tensor, lb: torch.Tensor, *,
 
 
 def make_finetune_step(optimizer, *, modes: str, stages: int, upscale: int,
-                       interval: int):
+                       interval: int, mesh: list | None = None):
     """One fine-tune step `step(weights, im, lb) -> loss` (the loss before
     the update, detached), updating the tensors of `weights` in place,
     under `full_f32_matmul` (the corner contraction's backward is a
-    matmul of float gradients)."""
+    matmul of float gradients).  With a `mesh` of several devices,
+    `step(replicas, im, lb)` is data-parallel, as
+    `pipelines.train.make_train_step`'s."""
+    def loss_fn(weights, im, lb):
+        return finetune_loss(weights, im, lb, modes=modes, stages=stages,
+                             upscale=upscale, interval=interval)
+
+    if mesh is not None and len(mesh) > 1:
+        def dp_step(replicas, im, lb):
+            with full_f32_matmul():
+                return data_parallel_step(optimizer, mesh, replicas, loss_fn,
+                                          im, lb)
+
+        return dp_step
+
     def step(weights, im, lb):
         optimizer.zero_grad(set_to_none=True)
         with full_f32_matmul():
-            loss = finetune_loss(weights, im, lb, modes=modes, stages=stages,
-                                 upscale=upscale, interval=interval)
+            loss = loss_fn(weights, im, lb)
             loss.backward()
             optimizer.step()
         return loss.detach()
@@ -102,12 +116,11 @@ def valid_steps(weights, valid: SRBenchmark, opt, it: int, logger):
 def finetune(opt, device=None) -> dict:
     """Full step-3 CLI behavior on `device` (None: the card): reads the
     transfer step's LUTs from `opt.expDir`, writes `LUT_ft_*` int8 tables
-    there.  Returns the fine-tuned float weights ({key: tensor})."""
-    if getattr(opt, "gpuNum", 1) > 1:
-        raise NotImplementedError(
-            f"gpuNum={opt.gpuNum}: fine-tuning on several cards is ROADMAP "
-            "Queue A item 10")
-    dev = resolve_device(device, "finetune")
+    there.  Returns the fine-tuned float weights ({key: tensor}).
+    `opt.gpuNum > 1` fine-tunes data-parallel, as `pipelines.train.train`
+    trains."""
+    mesh = mesh_for(device, getattr(opt, "gpuNum", 1), "finetune")
+    dev = mesh[0]
     logger_name = "lutft"
     logger_info(logger_name, os.path.join(opt.expDir, logger_name + ".log"))
     logger = logging.getLogger(logger_name)
@@ -135,7 +148,10 @@ def finetune(opt, device=None) -> dict:
             load_opt_state_npz(opt_ckpt, optimizer)
             logger.info(f"Resumed optimizer state from {opt_ckpt}")
     step = make_finetune_step(optimizer, modes=opt.modes, stages=opt.stages,
-                              upscale=opt.scale, interval=opt.interval)
+                              upscale=opt.scale, interval=opt.interval,
+                              mesh=mesh)
+    state = (weights if len(mesh) == 1
+             else [weights] + replicate_tree(mesh[1:], weights))
 
     provider = Provider(opt.batchSize, opt.workerNum, opt.scale, opt.trainDir,
                         opt.cropSize)
@@ -153,7 +169,7 @@ def finetune(opt, device=None) -> dict:
             lb = torch.from_numpy(lb).to(dev)
             dT += time.time() - st
 
-            l_accum += step(weights, im, lb)
+            l_accum += step(state, im, lb)
             accum_samples += opt.batchSize
 
             if i % opt.displayStep == 0:

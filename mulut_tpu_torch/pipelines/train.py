@@ -4,8 +4,9 @@ Torch twin of `mulut_tpu.pipelines.train`: one training step (forward
 cascade in its train phase, MSE, Adam) on one card, float32 with TF32 off
 (the JAX package trains at Precision.HIGHEST).  The cosine LR schedule,
 the optimizer's arithmetic (optax's Adam / AdamW), STE rounding, loss and
-log formats match the JAX package.  `trainPrecision="bf16"` and
-`gpuNum > 1` raise NotImplementedError (ROADMAP Queue A).
+log formats match the JAX package.  `gpuNum > 1` runs data-parallel steps
+over several devices (`parallel.mesh.data_parallel_step`);
+`trainPrecision="bf16"` raises NotImplementedError (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..models.torch_import import (
 )
 from ..ops.resize import full_f32_matmul
 from ..ops.unit_kernel import _INV255
-from ..utils.device import resolve_device
+from ..parallel.mesh import data_parallel_step, mesh_for, replicate_tree
 from ..utils.imgio import save_image
 from ..utils.logging_utils import logger_info
 from ..utils.metrics import psnr, rgb2ycbcr
@@ -138,21 +139,40 @@ def train_loss(params: dict, im: torch.Tensor, lb: torch.Tensor, *,
 
 
 def make_train_step(optimizer, *, modes: str, stages: int, scale: int,
-                    precision: str = "f32"):
+                    precision: str = "f32", mesh: list | None = None):
     """One training step `step(params, im, lb) -> loss` (the loss before
     the update, detached): forward, backward and the optimizer's update
     of the tensors of `params` in place, all under `full_f32_matmul`.
-    precision "bf16" raises NotImplementedError."""
+    precision "bf16" raises NotImplementedError.
+
+    With a `mesh` of several devices (`parallel.mesh.make_mesh`) the step
+    is data-parallel: `step(replicas, im, lb)` takes one copy of the
+    params per device (`parallel.mesh.replicate_tree`; `optimizer` steps
+    the first), splits the batch over the devices and reduces the shards'
+    losses and gradients onto the first (`data_parallel_grads`), updates
+    once and copies the params to the other replicas: the full-batch step
+    up to summation order."""
     if precision != "f32":
         raise NotImplementedError(
             f"precision={precision!r}: the port trains in float32 only "
-            "(ROADMAP Queue A item 7's remainder)")
+            "(ROADMAP Queue A item 6)")
+
+    def loss_fn(params, im, lb):
+        return train_loss(params, im, lb, modes=modes, stages=stages,
+                          scale=scale)
+
+    if mesh is not None and len(mesh) > 1:
+        def dp_step(replicas, im, lb):
+            with full_f32_matmul():
+                return data_parallel_step(optimizer, mesh, replicas, loss_fn,
+                                          im, lb)
+
+        return dp_step
 
     def step(params, im, lb):
         optimizer.zero_grad(set_to_none=True)
         with full_f32_matmul():
-            loss = train_loss(params, im, lb, modes=modes, stages=stages,
-                              scale=scale)
+            loss = loss_fn(params, im, lb)
             loss.backward()
             optimizer.step()
         return loss.detach()
@@ -222,19 +242,17 @@ def valid_steps(params, valid: SRBenchmark, opt, it: int, logger,
 
 def train(opt, device=None) -> dict:
     """Full step-1 training CLI behavior on `device` (None: the card).
-    Returns the final params ({unit: {name: tensor}}).  The options the
-    port does not run yet raise NotImplementedError, naming their ROADMAP
-    item."""
+    Returns the final params ({unit: {name: tensor}}).  `opt.gpuNum > 1`
+    trains data-parallel over min(gpuNum, device count) devices
+    (`parallel.mesh.mesh_for`: gpuNum CPU shards with `device="cpu"`, or a
+    list of gpuNum devices given as `device`).  The options the port does not
+    run yet raise NotImplementedError, naming their ROADMAP item."""
     if getattr(opt, "trainPrecision", "f32") != "f32":
         raise NotImplementedError(
             f"trainPrecision={opt.trainPrecision!r}: the port trains in "
-            "float32 only (bf16 matmuls are ROADMAP Queue A item 7's "
-            "remainder)")
-    if getattr(opt, "gpuNum", 1) > 1:
-        raise NotImplementedError(
-            f"gpuNum={opt.gpuNum}: training on several cards is ROADMAP "
-            "Queue A item 10")
-    dev = resolve_device(device, "train")
+            "float32 only (bf16 matmuls are ROADMAP Queue A item 6)")
+    mesh = mesh_for(device, getattr(opt, "gpuNum", 1), "train")
+    dev = mesh[0]
     logger_name = "train"
     logger_info(logger_name, os.path.join(opt.expDir, logger_name + ".log"))
     logger = logging.getLogger(logger_name)
@@ -264,7 +282,10 @@ def train(opt, device=None) -> dict:
             )
     step = make_train_step(optimizer, modes=opt.modes, stages=opt.stages,
                            scale=opt.scale,
-                           precision=getattr(opt, "trainPrecision", "f32"))
+                           precision=getattr(opt, "trainPrecision", "f32"),
+                           mesh=mesh)
+    state = (params if len(mesh) == 1
+             else [params] + replicate_tree(mesh[1:], params))
 
     provider = Provider(opt.batchSize, opt.workerNum, opt.scale, opt.trainDir,
                         opt.cropSize)
@@ -283,7 +304,7 @@ def train(opt, device=None) -> dict:
             lb = torch.from_numpy(lb).to(dev)
             dT += time.time() - st
 
-            l_accum += step(params, im, lb)
+            l_accum += step(state, im, lb)
             accum_samples += opt.batchSize
 
             if i % opt.displayStep == 0:

@@ -101,10 +101,26 @@ def test_no_cpu_fallback(small_luts, monkeypatch):
     (dict(scale=2), "scale"),
 ])
 def test_later_slices_raise(small_luts, kw, what):
-    """band > 0 and n_devices > 1 are later slices and raise.  scale=2
-    raised until the integer cascade was ported; it now runs
-    `lut_cascade_int`, byte-equal to the JAX evaluator."""
+    """The options that raised until their slice of the port was done now
+    give the JAX evaluator's bytes: scale=2 (`lut_cascade_int`), band > 0
+    (the banded packed cascade) and n_devices > 1 (bucketed dispatches
+    sharded over CPU shards; tests/test_torch_banded.py and
+    test_torch_parallel.py hold both further)."""
     cfg = dict(CFG, **kw)
+    if what in ("band", "n_devices"):
+        rng = np.random.default_rng(6)     # interval 6: 5**4-row tables
+        luts = {k: rng.integers(-127, 128, (5 ** 4, t.shape[1])).astype(
+            np.int8) for k, t in small_luts.items()}
+        imgs = [rng.integers(0, 256, hw + (3,)).astype(np.uint8)
+                for hw in ((21, 9), (13, 18), (16, 18))]
+        port = LutEvaluator(luts, **cfg, interval=6, bucket=16,
+                            device="cpu")
+        assert getattr(port, what) == kw[what]
+        want = JaxEvaluator(luts, **CFG, interval=6,
+                            bucket=16).upscale_many(imgs)
+        for g, w_ in zip(port.upscale_many(imgs), want):
+            np.testing.assert_array_equal(g, w_)
+        return
     if what == "scale":
         rng = np.random.default_rng(4)
         luts = {k: (t if k.startswith("s1") else rng.integers(
@@ -115,9 +131,6 @@ def test_later_slices_raise(small_luts, kw, what):
         img = rng.integers(0, 256, (11, 14, 3)).astype(np.uint8)
         np.testing.assert_array_equal(port.upscale(img),
                                       JaxEvaluator(luts, **cfg).upscale(img))
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        LutEvaluator(small_luts, **cfg, device="cpu")
 
 
 def test_yuv_raises(evaluators):

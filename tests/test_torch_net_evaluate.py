@@ -195,8 +195,17 @@ def test_no_cpu_fallback(monkeypatch):
     # quant (K11) is ported; tests/test_torch_quant.py holds it
     pytest.param(dict(n_devices=2), "n_devices", id="kw1-n_devices")])
 def test_later_slices_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        NetEvaluator(_params("mxu", 8), fast=True, device="cpu", **kw, **CFG)
+    """n_devices > 1, refused until the port's parallel slice, shards the
+    batch over CPU shards with one device's bytes
+    (tests/test_torch_parallel.py holds it against JAX's)."""
+    params = _params("mxu", 8)
+    imgs = np.random.default_rng(3).integers(0, 256, (3, 10, 12, 3),
+                                             dtype=np.uint8)
+    one = NetEvaluator(params, fast=True, device="cpu", **CFG)
+    many = NetEvaluator(params, fast=True, device="cpu", **kw, **CFG)
+    assert many.n_devices == kw[what]
+    np.testing.assert_array_equal(many.upscale_batch(imgs),
+                                  one.upscale_batch(imgs))
 
 
 def parity_report(shape=(1, 3, 48, 64), seed=0):
