@@ -238,10 +238,40 @@ Then how the port cuts an image or a batch (`_parallel`; K1, K2, K3):
      `dryrun_multidevice(4, ["cuda:0"] * 4)`; no plain contraction on the
      LUT paths; the phase's wall time.
 
+Then distillation and the non-SR tasks (`_tasks`; no kernel of their own:
+K3 serves the students, K1 and K2 their tables, K1 the x1 cascade):
+
+ 17. `distill_srnets` from phase 13's trained dense units (seed-0 ones when
+     it did not run; nf=64, depth 4, x4 `sdy`, 2 stages) into plain
+     students (nf=128, depth 2) on 65,536 taps per step at interval 4,
+     TASKS["distill_steps"] steps per unit, each step timed with CUDA
+     events, each unit's lattice metrics; `distill_finetune_cascade`, 16
+     crops of 48^2, TASKS["cascade_steps"] steps, timed; the students
+     through `NetEvaluator(fast=True)` on the batch: both K3 calls of
+     `upscale_batch` against their plain version at phase 7's gates, 2 K3
+     launches counted, the 135 x 240 crop card vs CPU path, K3 per call
+     site timed; `transfer_to_luts(students)` through `LutEvaluator` (6
+     window contractions and 1 tail counted, a 2 x 135 x 240 crop
+     byte-equal to the CPU path); `train_dn` at the reference width (dense
+     nf=64, `sdy`, 2 stages, 32 x 1 x 48 x 48 crops of structured images,
+     sigma 15, TASKS["task_steps"] steps, timed), `dn_transfer` against
+     the CPU path (CACHE_FLIP_SHARE), `dn_lut_apply` on a 1080 x 1920 x 3
+     structured frame (seed 17) plus noise: each of its 6 K1 calls
+     byte-equal to its plain version (and at u=4 to the JAX-boundary K1),
+     6 window contractions and no tail counted, a 135 x 240 crop
+     byte-equal to the CPU path, the x1 cascade's device ms, the host ms,
+     K1 per call site against its bound, a profile, the PSNR gain over the
+     noisy frame; `train_dm` (nf=64, 32 x 48 x 48 x 3, timed),
+     `dm_transfer`'s (L**4, 12) int8 table, `dm_lut_apply` on the frame's
+     mosaic byte-equal to the CPU path, its device and host ms; the
+     phase's wall time.
+
 Prints a `{"kernels": [...]}` line (K1 in both forms, K2-K11; K8 with the
 float32 head; K3, K6 and K8 at nf=256 under names ending in "_nf256"; K1
 per phase 15 configuration, K2 at six modes and the JAX-boundary K1 at
-C != 16 under names ending in the configuration or "_rank") and
+C != 16 under names ending in the configuration or "_rank"; phase 17's
+K3 as "stage_ensemble_apply_w_students" and K1 as
+"window_fold_contract_dn_x1") and
 ends with one `{"ok": true, "device": {...}}` line.  Any failed phase
 raises.
 
@@ -263,16 +293,18 @@ prints each kernel instance's SASS instruction count by opcode
     python3 chip_smoke.py --nf256
     python3 chip_smoke.py --lut-rank
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --tasks
 
 build the kernels and run phase 13 (its deploy timings without phase 6's
 beside them), phase 14 (with ptxas's report of the plain sources), phase
-15 (with ptxas's report of the K1 sources) or phase 16 alone; readings and
-gates as in the full run.
+15 (with ptxas's report of the K1 sources), phase 16 or phase 17 (with
+seed-0 teachers) alone; readings and gates as in the full run.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -2517,10 +2549,11 @@ def main() -> int:
     net_entries.append(_quant_mode(torch, tk, imgs))
     net_entries += _dense_routes(torch, tk, imgs)
     net_entries += _plain_routes(torch, tk, imgs)
-    _training_half(torch, tk, imgs, (dev_ms, wf_site_ms))
+    trained = _training_half(torch, tk, imgs, (dev_ms, wf_site_ms))
     net_entries += _plain_nf256(torch, tk, imgs)
     net_entries += _lut_rank(torch, tk, imgs, out)
     _parallel(torch, tk, imgs)
+    net_entries += _tasks(torch, tk, imgs, trained)
 
     print(json.dumps({"kernels": [
         {"name": "window_fold_contract", "route": "cuda",
@@ -2822,22 +2855,33 @@ def _timed_steps(torch, module, name, dev):
     return rec, lambda: setattr(module, name, make)
 
 
-def _step_readings(torch, rec, what):
-    """Per-step ms and losses of a `_timed_steps` record: prints them,
-    fails on a loss that is not finite; returns the median ms of steps 6
-    on."""
+def _step_readings(torch, rec, what, flops=None):
+    """Per-step ms and losses of a `_timed_steps` record: prints them (of
+    a run of more than 24 steps the first and last three, and the ms'
+    min and max), fails on a loss that is not finite; with `flops`, the
+    float32 operations of one step, prints its bound over the SIMT peak.
+    Returns the median ms of steps 6 on."""
     if rec["ms"] and not isinstance(rec["ms"][0], float):
         torch.cuda.synchronize()
         rec["ms"] = [a.elapsed_time(b) for a, b in rec["ms"]]
-    losses = [float(x) for x in rec["loss"]]
-    print(f"{what}: {len(losses)} steps, loss per step "
-          + " ".join(f"{x:.6f}" for x in losses))
+    losses, ms = [float(x) for x in rec["loss"]], rec["ms"]
+    long = len(losses) > 24
+
+    def listed(xs, digits):
+        if long:
+            xs = xs[:3] + ["..."] + xs[-3:]
+        return " ".join(x if x == "..." else f"{x:.{digits}f}" for x in xs)
+
+    print(f"{what}: {len(losses)} steps, loss per step " + listed(losses, 6))
     if not losses or not all(np.isfinite(losses)):
-        raise RuntimeError(f"{what}: losses {losses}")
-    med = float(np.median(rec["ms"][5:] or rec["ms"]))
-    print(f"{what}: ms per step (CUDA events) "
-          + " ".join(f"{x:.3f}" for x in rec["ms"])
-          + f"; median of steps 6-{len(losses)}: {med:.3f}")
+        raise RuntimeError(f"{what}: losses {listed(losses, 6)}")
+    med = float(np.median(ms[5:] or ms))
+    print(f"{what}: ms per step (CUDA events) " + listed(ms, 3)
+          + f"; median of steps 6-{len(losses)}: {med:.3f}"
+          + (f", min {min(ms):.3f}, max {max(ms):.3f}" if long else "")
+          + ("" if flops is None else
+             f"; bound {flops / FP32_FLOPS_PER_MS:.3f} ms ({flops / 1e9:.3f}"
+             " GFLOP float32 per step over 67 TFLOP/s)"))
     return med
 
 
@@ -2908,9 +2952,10 @@ def _cascade_sites(torch, tk, ev, x, what, phase6):
 
 
 def _training_half(torch, tk, imgs, phase6=None, *, dev="cuda", sizes=None):
-    """Phase 13: the training half on the card (module docstring).  `dev`
-    and `sizes` (keys of TRAIN) exist for a rehearsal on the CPU at a
-    small size; the card run takes the defaults."""
+    """Phase 13: the training half on the card (module docstring); returns
+    the trained params (phase 17's teachers).  `dev` and `sizes` (keys of
+    TRAIN) exist for a rehearsal on the CPU at a small size; the card run
+    takes the defaults."""
     import tempfile
 
     from mulut_tpu_torch.data import DIV2K
@@ -2919,8 +2964,8 @@ def _training_half(torch, tk, imgs, phase6=None, *, dev="cuda", sizes=None):
     from mulut_tpu_torch.models.torch_import import load_params_npz
     from mulut_tpu_torch.ops import unit_kernel as uk
     from mulut_tpu_torch.ops.resize import full_f32_matmul
-    from mulut_tpu_torch.pipelines import finetune as ftm
-    from mulut_tpu_torch.pipelines import train as trm
+    ftm = importlib.import_module("mulut_tpu_torch.pipelines.finetune")
+    trm = importlib.import_module("mulut_tpu_torch.pipelines.train")
     from mulut_tpu_torch.pipelines import transfer as tfm
     from mulut_tpu_torch.pipelines.evaluate import LutEvaluator
     from mulut_tpu_torch.utils.lut_io import lut_filename
@@ -3104,7 +3149,7 @@ def _training_half(torch, tk, imgs, phase6=None, *, dev="cuda", sizes=None):
         print(f"deploy: fine-tuned tables, upscale_batch {imgs.shape} -> "
               f"{out.shape} byte-equal to the CPU path, launches {launches}")
         if not card:
-            return
+            return trained
         x = torch.from_numpy(np.ascontiguousarray(
             imgs.transpose(0, 3, 1, 2))).to(dev)
         _cascade_sites(torch, tk, ev, x, "deploy, bench batch", phase6)
@@ -3115,6 +3160,7 @@ def _training_half(torch, tk, imgs, phase6=None, *, dev="cuda", sizes=None):
         x = torch.from_numpy(np.ascontiguousarray(
             frames.transpose(0, 3, 1, 2))).to(dev)
         _cascade_sites(torch, tk, ev, x, "deploy, structured frames", phase6)
+    return trained
 
 
 #: Phase 15 (`_lut_rank`): the LUT configurations of the rank-format tables
@@ -3474,8 +3520,8 @@ def _parallel(torch, tk, imgs, *, dev="cuda"):
         replicate_tree,
         tree_leaves,
     )
-    from mulut_tpu_torch.pipelines import finetune as ftm
-    from mulut_tpu_torch.pipelines import train as trm
+    ftm = importlib.import_module("mulut_tpu_torch.pipelines.finetune")
+    trm = importlib.import_module("mulut_tpu_torch.pipelines.train")
     from mulut_tpu_torch.pipelines import transfer as tfm
     from mulut_tpu_torch.pipelines.evaluate import LutEvaluator, NetEvaluator
 
@@ -3739,6 +3785,349 @@ def _parallel(torch, tk, imgs, *, dev="cuda"):
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
+#: Phase 17 (`_tasks`): distillation and the non-SR tasks at full width,
+#: only the iterations cut.  Distillation: dense teachers (phase 13's
+#: trained units when it ran, else `init_srnets` seed 0: nf=64, depth 4,
+#: x4 `sdy`, 2 stages) into plain students of nf=128, depth 2, on 65,536
+#: taps per step at interval 4, `distill_steps` steps per unit; then the
+#: image-space pass, `cascade_steps` steps of 16 crops of 48^2.  Denoise:
+#: dense nf=64 `sdy` 2-stage x1 cascade, `task_steps` steps of 32 x 1 x
+#: 48 x 48 at sigma 15, deployed on one 1080 x 1920 x 3 frame (`_frame`,
+#: seed 17) plus noise; demosaic: the nf=64 unit, `task_steps` steps of
+#: 32 x 48 x 48 x 3, deployed on that frame's mosaic.  The crop is the
+#: card-vs-CPU window of the deployments.
+TASKS = dict(teacher_nf=64, student_nf=128, student_depth=2, taps=65536,
+             distill_steps=300, cascade_steps=10, cascade_batch=16,
+             cascade_crop=48, task_nf=64, task_batch=32, task_crop=48,
+             task_steps=20, sigma=15.0, frame=(1080, 1920),
+             crop=(CROP_H, CROP_W))
+
+
+def _task_crops(rng, n, batch, crop, *, rgb):
+    """`n` uint8 batches of `crop`^2 crops of 8 structured 192^2 images
+    (`data.synthetic._synth_image`): (batch, crop, crop, 3) with `rgb`,
+    else one random channel, (batch, 1, crop, crop)."""
+    from mulut_tpu_torch.data.synthetic import _synth_image
+
+    pool = [_synth_image(rng, 192) for _ in range(8)]
+    out = []
+    for _ in range(n):
+        ims = []
+        for _ in range(batch):
+            im = pool[rng.integers(len(pool))]
+            y, x = rng.integers(0, 192 - crop + 1, 2)
+            patch = im[y: y + crop, x: x + crop]
+            ims.append(patch if rgb else patch[None, :, :, rng.integers(3)])
+        out.append(np.ascontiguousarray(np.stack(ims)))
+    return out
+
+
+def _unit_macs(unit):
+    """Multiply-adds per tap vector of one unit (its weight matrices)."""
+    return sum(int(np.prod(t.shape)) for n, t in unit.items() if n[0] == "w")
+
+
+def _tasks(torch, tk, imgs, teachers=None, *, dev="cuda"):
+    """Phase 17: distillation and the non-SR tasks on the card (module
+    docstring); `teachers` are phase 13's trained dense units.  Returns
+    the K3 (students) and K1 (x1 cascade) entries of the kernels line.
+    `dev` exists for a rehearsal on the CPU at a small size (TASKS and
+    the image constants shrunk, `_cuda_ms` and the `torch.cuda` calls
+    stubbed); the card run takes the default."""
+    from mulut_tpu_torch.models.srnet import init_srnets
+    from mulut_tpu_torch.models.torch_import import (
+        params_from_numpy,
+        params_to_numpy,
+    )
+    from mulut_tpu_torch.ops import ensemble as ens
+    from mulut_tpu_torch.ops import simplex as sx
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.pipelines import distill as dsm
+    from mulut_tpu_torch.pipelines import tasks as tsk
+    trm = importlib.import_module("mulut_tpu_torch.pipelines.train")
+    from mulut_tpu_torch.pipelines.evaluate import LutEvaluator, NetEvaluator
+    from mulut_tpu_torch.pipelines.transfer import transfer_to_luts
+    from mulut_tpu_torch.utils.metrics import psnr
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    size = TASKS
+    cfg = dict(stages=STAGES, modes=MODES, scale=SCALE)
+    ch, cw = size["crop"]
+    print(f"phase 17 on {_card() if card else 'the CPU (rehearsal)'}; cut: "
+          f"{size['distill_steps']} distillation steps per unit (4,000 by "
+          f"default), {size['cascade_steps']} image-space steps (2,000), "
+          f"{size['task_steps']} denoise and demosaic steps (100)")
+
+    # 17.1 distillation
+    if teachers is None:
+        teachers = init_srnets(np.random.default_rng(0),
+                               nf=size["teacher_nf"], arch="dense", **cfg)
+        print("distillation: teachers are seed-0 dense units (phase 13 did "
+              "not run)")
+    else:
+        print("distillation: teachers are phase 13's trained dense units")
+    teachers = params_to_numpy(params_from_numpy(teachers, "cpu"))
+    rec, restore = _timed_steps(torch, dsm, "make_distill_step", dev)
+    t0 = time.perf_counter()
+    try:
+        students, metrics = dsm.distill_srnets(
+            teachers, nf=size["student_nf"], depth=size["student_depth"],
+            iters=size["distill_steps"], batch=size["taps"],
+            interval=INTERVAL, device=dev, **cfg)
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    for name, m in metrics.items():
+        print(f"distill {name}: final batch mse {m['final_batch_mse']:.4e}, "
+              f"lattice mse {m['lattice_mse']:.4e}, max |err| "
+              f"{m['lattice_max_abs']:.4f} ({m['lattice_max_levels']:.2f} "
+              "LUT levels)")
+    s2 = f"s{STAGES}_{MODES[0]}"
+    flops = 2 * size["taps"] * (_unit_macs(teachers[s2])
+                                + 3 * _unit_macs(students[s2]))
+    med = _step_readings(torch, rec, "distill_unit steps (final stage)",
+                         flops)
+    print(f"distill_srnets: {len(students)} units, {wall:.1f} s (host "
+          "clock, lattice metrics included)")
+    if card:        # one final-stage step, on a copy of its student
+        p = trm.trainable({"u": students[s2]}, dev)["u"]
+        teacher = params_from_numpy({"u": teachers[s2]}, dev)["u"]
+        step = dsm.make_distill_step(trm.make_optimizer(
+            [p[k] for k in sorted(p)], 2e-3, 1e-5, 100), teacher)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        lattice = torch.as_tensor(dsm.transfer_lattice(INTERVAL), device=dev)
+        _profile(torch, lambda: step(p, dsm.sample_taps(
+            gen, size["taps"], lattice=lattice)), med, top=8,
+            what="distill step")
+        del p, teacher, step
+    rec, restore = _timed_steps(torch, dsm, "make_cascade_distill_step", dev)
+    try:
+        students, losses = dsm.distill_finetune_cascade(
+            students, teachers, iters=size["cascade_steps"],
+            batch=size["cascade_batch"], crop=size["cascade_crop"],
+            device=dev, **cfg)
+    finally:
+        restore()
+    px = size["cascade_batch"] * size["cascade_crop"] ** 2
+    macs = sum(_unit_macs(teachers[f"s{s + 1}_{m}"])
+               + 3 * _unit_macs(students[f"s{s + 1}_{m}"])
+               for s in range(STAGES) for m in MODES)
+    med = _step_readings(torch, rec, "distill_finetune_cascade",
+                         2 * 4 * px * macs)
+    if card:        # one step, on copies of the students
+        p = trm.trainable(students, dev)
+        step = dsm.make_cascade_distill_step(
+            trm.make_optimizer(trm.param_leaves(p), 2e-4, 1e-6, 100),
+            params_from_numpy(teachers, dev), **cfg)
+        x = torch.rand((size["cascade_batch"], 1, size["cascade_crop"],
+                        size["cascade_crop"]), device=dev)
+        _profile(torch, lambda: step(p, x), med, top=8,
+                 what="image-space distillation step")
+        del p, step, x
+
+    # 17.2 serve the students: net mode (K3) and their cached tables (K1, K2)
+    ev = NetEvaluator(students, fast=True, device=dev, **cfg)
+    (calls,) = _record_calls(uk, ("stage_ensemble_apply_w",),
+                             lambda: ev.upscale_batch(imgs))
+    if len(calls) != 2:
+        raise RuntimeError(f"students: recorded {len(calls)} K3 calls, "
+                           "expected 2")
+    k3_err = 0.0
+    for site, (args, kw) in zip(("s1 inner", "s2 final"), calls):
+        for mix in [None] + ([kw["mix"]] if kw.get("mix") else []):
+            got = uk.stage_ensemble_apply_w(*args, **dict(kw, mix=mix))
+            want = uk.stage_ensemble_apply_w_plain(*args, **{
+                k: v for k, v in dict(kw, mix=mix).items() if k != "v"})
+            if card:
+                torch.cuda.synchronize()
+            k3_err = max(k3_err, _gate(
+                f"students K3 {site} {'raw acc' if mix is None else mix} "
+                f"{tuple(got.shape)}", _differ(torch, got, want, mix),
+                RAW_ABS if mix is None else MIX_ABS))
+    out, launches, ulaunch, _ = _counted(torch, tk, uk, sx,
+                                         lambda: ev.upscale_batch(imgs))
+    _k3_gate(f"students NetEvaluator(fast=True).upscale_batch {imgs.shape}",
+             card, ulaunch, 2)
+    if any(launches.values()):
+        raise RuntimeError(f"students net mode launched LUT kernels "
+                           f"{launches}")
+    k3_launches = ulaunch["stage_ensemble_apply_w"]
+    crop = np.ascontiguousarray(imgs[0, :ch, :cw])
+    _u8_gate(f"students net {ch}x{cw} crop, card vs CPU path",
+             ev.upscale(crop), NetEvaluator(students, fast=True,
+                                            device="cpu", **cfg).upscale(crop))
+    t0 = time.perf_counter()
+    ev.upscale_batch(imgs)
+    print(f"students net upscale_batch (host clock): "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    k3 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for site, (args, kw) in zip(("s1 inner", "s2 final"), calls):
+        n, fl, nbytes = _k3_work(args[0], args[1], kw)
+        pkw = {k: v for k, v in kw.items() if k != "v"}
+        t = {"ms": _cuda_ms(torch, lambda: uk.stage_ensemble_apply_w(
+                 *args, **kw), 10),
+             "plain_ms": _cuda_ms(torch, lambda: uk.stage_ensemble_apply_w_plain(
+                 *args, **pkw), 2),
+             "bound_ms": max(fl / BF16_FLOPS_PER_MS,
+                             nbytes / HBM_BYTES_PER_MS)}
+        for k in k3:
+            k3[k] += t[k]
+        print(f"students K3 {site}: image sites={n} "
+              + " ".join(f"{k}={v:.4f}" for k, v in t.items()))
+    del ev, calls
+    tables = transfer_to_luts(students, modes=MODES, stages=STAGES,
+                              interval=INTERVAL, device=dev)
+    lev = LutEvaluator(tables, interval=INTERVAL, device=dev, **cfg)
+    out, launches, ulaunch, plain = _counted(
+        torch, tk, uk, sx, lambda: lev.upscale_batch(imgs))
+    _lut_launch_gate(f"students' tables LutEvaluator.upscale_batch "
+                     f"{imgs.shape}", card, launches, plain, 6, 1)
+    crops = np.ascontiguousarray(imgs[:2, :ch, :cw])
+    got = lev.upscale_batch(crops)
+    want = LutEvaluator(tables, interval=INTERVAL, device="cpu",
+                        **cfg).upscale_batch(crops)
+    if not np.array_equal(got, want):
+        raise RuntimeError(f"students' tables: {int((got != want).sum())} "
+                           "bytes differ from the CPU path")
+    print(f"students' tables: crop {crops.shape} byte-equal to the CPU path")
+    del lev, tables
+    if card:
+        torch.cuda.empty_cache()
+
+    # 17.3 denoise
+    rng = np.random.default_rng(17)
+    batches = _task_crops(rng, size["task_steps"], size["task_batch"],
+                          size["task_crop"], rgb=False)
+    rec, restore = _timed_steps(torch, tsk, "make_dn_train_step", dev)
+    try:
+        dn, losses = tsk.train_dn(iter(batches), nf=size["task_nf"],
+                                  iters=size["task_steps"], device=dev,
+                                  modes=MODES, stages=STAGES)
+    finally:
+        restore()
+    px = size["task_batch"] * size["task_crop"] ** 2
+    macs = sum(_unit_macs(u) for u in dn.values())
+    _step_readings(torch, rec, f"train_dn (sigma {size['sigma']:g})",
+                   3 * 2 * 4 * px * macs)
+    luts = tsk.dn_transfer(dn, modes=MODES, stages=STAGES,
+                           interval=INTERVAL, device=dev)
+    want = tsk.dn_transfer(dn, modes=MODES, stages=STAGES,
+                           interval=INTERVAL, device="cpu")
+    for k in sorted(luts):
+        d = np.abs(luts[k].astype(int) - want[k].astype(int))
+        if luts[k].shape != ((2 ** (8 - INTERVAL) + 1) ** 4, 1) or \
+                d.max() > 1 or (d > 0).sum() > CACHE_FLIP_SHARE * d.size:
+            raise RuntimeError(f"dn_transfer {k}: {luts[k].shape}, "
+                               f"{int((d > 0).sum())} entries off the CPU "
+                               "path")
+    print(f"dn_transfer: {len(luts)} tables {luts[sorted(luts)[0]].shape} "
+          "int8, tie flips against the CPU path "
+          f"{sum(int((luts[k] != want[k]).sum()) for k in luts)}")
+    fh, fw = size["frame"]
+    frame = _frame(rng, fh, fw)
+    noisy = tsk.add_gaussian_noise(frame, size["sigma"], rng)
+    run = dict(modes=MODES, stages=STAGES, interval=INTERVAL, device=dev)
+    (wf_calls,) = _record_calls(tk, ("window_fold_contract",),
+                                lambda: tsk.dn_lut_apply(luts, noisy, **run))
+    labels = [f"s{s + 1}_{m} " + lab for (s, m), lab in zip(
+        [(s, m) for s in range(STAGES) for m in MODES],
+        _window_labels(tk, wf_calls))]
+    wf_err, _, _ = _k1_checks(torch, tk, wf_calls, labels, "dn_lut_apply")
+    den, launches, ulaunch, plain = _counted(
+        torch, tk, uk, sx, lambda: tsk.dn_lut_apply(luts, noisy, **run))
+    _lut_launch_gate(f"dn_lut_apply {noisy.shape}", card, launches, plain,
+                     len(labels), 0)
+    if any(ulaunch.values()) or den.shape != frame.shape:
+        raise RuntimeError(f"dn_lut_apply: {den.shape}, unit launches "
+                           f"{ulaunch}")
+    k1_launches = launches["window_fold_contract"]
+    c = np.ascontiguousarray(noisy[:ch, :cw])
+    got = tsk.dn_lut_apply(luts, c, **run)
+    want = tsk.dn_lut_apply(luts, c, **dict(run, device="cpu"))
+    if not np.array_equal(got, want):
+        raise RuntimeError(f"dn_lut_apply crop: {int((got != want).sum())} "
+                           "bytes differ from the CPU path")
+    print(f"dn_lut_apply: crop {c.shape} byte-equal to the CPU path")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        tsk.dn_lut_apply(luts, noisy, **run)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
+    tabs = ens.prepare_expanded_luts(luts, interval=INTERVAL, device=dev)
+    x = torch.from_numpy(np.ascontiguousarray(noisy.astype(
+        np.int32).transpose(2, 0, 1))).to(dev)
+
+    def cascade():
+        return ens.lut_cascade_int(tabs, x, stages=STAGES, modes=MODES,
+                                   scale=1, interval=INTERVAL, expanded=True)
+
+    dev_ms = _cuda_ms(torch, cascade, 10)
+    k1, _ = _window_timings(torch, tk, wf_calls, labels, "dn_lut_apply")
+    print(f"dn_lut_apply {noisy.shape}: x1 cascade on the card (CUDA "
+          f"events) {dev_ms:.3f} ms, of which K1 {k1['ms']:.3f} (bound "
+          f"{k1['bound_ms']:.3f}); dn_lut_apply host clock (table build, "
+          f"H2D, D2H included) {host_ms:.3f} ms; PSNR noisy "
+          f"{psnr(frame, noisy):.3f} dB, denoised {psnr(frame, den):.3f} "
+          f"dB, gain {psnr(frame, den) - psnr(frame, noisy):.3f} dB (4-pixel "
+          "border shaved)")
+    if card:
+        _profile(torch, cascade, dev_ms, top=10, what="x1 cascade")
+    del tabs, x, wf_calls
+
+    # 17.4 demosaic
+    batches = _task_crops(rng, size["task_steps"], size["task_batch"],
+                          size["task_crop"], rgb=True)
+    rec, restore = _timed_steps(torch, tsk, "make_dm_train_step", dev)
+    try:
+        dm, losses = tsk.train_dm(iter(batches), nf=size["task_nf"],
+                                  iters=size["task_steps"], device=dev)
+    finally:
+        restore()
+    px = size["task_batch"] * size["task_crop"] ** 2 // 4
+    _step_readings(torch, rec, "train_dm", 3 * 2 * px * _unit_macs(dm))
+    lut = tsk.dm_transfer(dm, interval=INTERVAL, device=dev)
+    if lut.shape != ((2 ** (8 - INTERVAL) + 1) ** 4, 12) or \
+            lut.dtype != np.int8:
+        raise RuntimeError(f"dm_transfer: {lut.shape} {lut.dtype}")
+    mosaic = tsk.bayer_mosaic(frame)
+    t0 = time.perf_counter()
+    dmo = tsk.dm_lut_apply(lut, mosaic, interval=INTERVAL, device=dev)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    want = tsk.dm_lut_apply(lut, mosaic, interval=INTERVAL, device="cpu")
+    if dmo.shape != frame.shape or not np.array_equal(dmo, want):
+        raise RuntimeError(f"dm_lut_apply {dmo.shape}: "
+                           f"{int((dmo != want).sum())} bytes differ from "
+                           "the CPU path")
+    xb = torch.from_numpy(mosaic.astype(np.int32)).to(dev)
+    planes = [xb[0::2, 0::2], xb[0::2, 1::2], xb[1::2, 0::2], xb[1::2, 1::2]]
+    lut_t = torch.as_tensor(lut.astype(np.int32), device=dev)
+
+    def retrieval():
+        return sx.simplex_planes_int(lut_t, planes, interval=INTERVAL)
+
+    ms = _cuda_ms(torch, retrieval, 10)
+    if card:
+        _profile(torch, retrieval, ms, top=6, what="demosaic retrieval")
+    print(f"dm_lut_apply: {lut.shape} int8 table, mosaic {mosaic.shape} -> "
+          f"{dmo.shape} byte-equal to the CPU path; the retrieval on the "
+          f"card (CUDA events, torch ops) {ms:.3f} ms, dm_lut_apply host "
+          f"clock {host_ms:.3f} ms; PSNR against the frame "
+          f"{psnr(frame, dmo):.3f} dB")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return [
+        {"name": "stage_ensemble_apply_w_students", "route": "cuda",
+         "source": SOURCE_K3, "replaces": REPLACES_K3,
+         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": "operations", "library_ms": None},
+        {"name": "window_fold_contract_dn_x1", "route": "cuda",
+         "source": SOURCE_K1W, "replaces": REPLACES_K1,
+         "launches": k1_launches, "max_abs_err": wf_err, "ms": k1["ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": "bytes", "library_ms": None}]
+
+
 def _k3_gate(what, card, ulaunch, count):
     print(f"{what}: unit-kernel launches {ulaunch}")
     if card and ulaunch != _only(ulaunch, "stage_ensemble_apply_w", count):
@@ -3761,9 +4150,9 @@ def _net_equal(torch, what, got, want):
 
 
 def _phase_only(phase) -> int:
-    """`--training`, `--nf256`, `--lut-rank` and `--parallel`: the card,
-    the kernel build (with ptxas's report for `--nf256` and `--lut-rank`)
-    and phase 13, 14, 15 or 16 alone."""
+    """`--training`, `--nf256`, `--lut-rank`, `--parallel` and `--tasks`:
+    the card, the kernel build (with ptxas's report for `--nf256` and
+    `--lut-rank`) and phase 13, 14, 15, 16 or 17 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3782,6 +4171,8 @@ def _phase_only(phase) -> int:
         _training_half(torch, tk, imgs)
     elif phase == "parallel":
         _parallel(torch, tk, imgs)
+    elif phase == "tasks":
+        print(json.dumps({"kernels": _tasks(torch, tk, imgs)}))
     elif phase == "lut-rank":
         _ptxas_report({k: v for k, v in logs.items()
                        if k in ("window_fold", "fold_contract")})
@@ -3801,7 +4192,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sass"]:
         sys.exit(_sass(sys.argv[2:]))
     if sys.argv[1:2] in (["--training"], ["--nf256"], ["--lut-rank"],
-                         ["--parallel"]):
+                         ["--parallel"], ["--tasks"]):
         sys.exit(_phase_only(sys.argv[1][2:]))
     if sys.argv[1:2] == ["--ab-one"]:
         one = {"plain": _plain_ab_one, "w8a8": _w8a8_ab_one}[sys.argv[2]]

@@ -10,6 +10,10 @@ training half, steps 1-3 as PyTorch ops (`pipelines.train`,
 `pipelines.transfer`, `pipelines.finetune`, `models.lut_model`, `data`).
 Slice 13: how an image or a batch is cut: row bands (`band`) and shards
 over several devices (`parallel`, `n_devices`, `gpuNum`, `dryrun`).
+Slice 14: distillation (`pipelines.distill`: plain students fitted to
+dense teachers, served through net mode's kernels) and the non-SR tasks
+(`pipelines.tasks`: denoise and deblock through the x1 LUT cascade,
+demosaic through one 12-lane simplex pass).
 The kernels are hand-written CUDA in `ops/csrc/`.  Imports torch, numpy
 and scipy; PIL only inside the functions that read or write images.
 """

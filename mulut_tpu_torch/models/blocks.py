@@ -70,3 +70,31 @@ def apply_mulut_unit(params: dict, x4: torch.Tensor, *,
             feat = torch.relu(x @ params[f"w{i}"] + params[f"b{i}"])
             x = torch.cat([x, feat], dim=-1) if dense else feat
         return torch.tanh(x @ params["w6"] + params["b6"])
+
+
+def init_mulut_c_unit(rng: np.random.Generator, *, nf: int = 64) -> dict:
+    """Channel-wise RGB->RGB unit (ref: common/network.py:108-133) as
+    float32 NumPy arrays: w1 (3, nf), dense-concat w2..w5 (k*nf, nf), w6
+    (5*nf, 3), Kaiming-normal from `rng`, zero biases.  Same layout as
+    `mulut_tpu.models.blocks.init_mulut_c_unit`."""
+    params = {
+        "w1": _kaiming_normal(rng, (3, nf), fan_in=3),
+        "b1": np.zeros((nf,), np.float32),
+    }
+    for i, w_in in enumerate([nf, 2 * nf, 3 * nf, 4 * nf], start=2):
+        params[f"w{i}"] = _kaiming_normal(rng, (w_in, nf), fan_in=w_in)
+        params[f"b{i}"] = np.zeros((nf,), np.float32)
+    params["w6"] = _kaiming_normal(rng, (5 * nf, 3), fan_in=5 * nf)
+    params["b6"] = np.zeros((3,), np.float32)
+    return params
+
+
+def apply_mulut_c_unit(params: dict, rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3) in (-1, 1): the dense 1x1 stack with a tanh
+    output, matmuls in full float32 (TF32 off)."""
+    with full_f32_matmul():
+        x = torch.relu(rgb @ params["w1"] + params["b1"])
+        for i in range(2, 6):
+            feat = torch.relu(x @ params[f"w{i}"] + params[f"b{i}"])
+            x = torch.cat([x, feat], dim=-1)
+        return torch.tanh(x @ params["w6"] + params["b6"])

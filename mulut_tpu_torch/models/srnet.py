@@ -1,5 +1,8 @@
 """SRNets cascades over tap-MLP units: the f32 forward, its band-tiled
-form, and the fast (bf16) forward through the stage-ensemble kernels.
+form, and the fast (bf16) forward through the stage-ensemble kernels;
+one unit over a padded batch (`srnet_apply`), and the task models: the
+x1 cascade of denoising and deblocking (`init_dnnets`, `dnnets_predict`)
+and the 2x2 bayer-cell demosaic unit (`init_dmnet`, `dmnet_apply`).
 
 Torch twin of the net-mode parts of `mulut_tpu.models.srnet`.  A model is
 a params dict {"s{stage}_{mode}": unit params} (tensors, see
@@ -40,7 +43,7 @@ import torch
 from ..ops import unit_kernel as uk
 from ..ops.ensemble import _pad_all
 from ..ops.simplex import clip, div_add, round_ste
-from ..ops.taps import lane_rotation_perm, mode_pad, rotated_taps
+from ..ops.taps import lane_rotation_perm, mode_pad, mode_taps, rotated_taps
 from .blocks import apply_mulut_unit, init_mulut_unit, unit_layout
 
 
@@ -66,7 +69,8 @@ def init_srnets(rng: np.random.Generator, *, nf: int = 64, scale: int = 4,
     """Stage x mode registry of MuLUT units (ref: sr/model.py:15-31) as
     float32 NumPy arrays, Kaiming-normal from `rng`.  arch "dense" is the
     reference (depth-4 dense-concat); "mxu" is the plain MLP of depth
-    `depth` (default 2).  The last stage upscales by `scale`."""
+    `depth` (default 2; a tuple or list gives each stage its own).  The
+    last stage upscales by `scale`."""
     if arch not in ("dense", "mxu"):
         raise ValueError(f"unknown arch {arch!r}: expected 'dense' or 'mxu'")
     dense = arch == "dense"
@@ -75,10 +79,28 @@ def init_srnets(rng: np.random.Generator, *, nf: int = 64, scale: int = 4,
     params = {}
     for s in range(stages):
         upscale = scale if s + 1 == stages else 1
+        d_s = depth[s] if isinstance(depth, (tuple, list)) else depth
         for mode in modes:
             params[f"s{s + 1}_{mode}"] = init_mulut_unit(
-                rng, nf=nf, upscale=upscale, dense=dense, depth=depth)
+                rng, nf=nf, upscale=upscale, dense=dense, depth=d_s)
     return params
+
+
+def srnet_apply(unit_params: dict, x: torch.Tensor, *, mode: str,
+                upscale: int) -> torch.Tensor:
+    """One unit over a padded batch: x (B, C, H, W) in [0, 1], already
+    replicate-padded bottom/right by `mode_pad(mode)` (the caller pads,
+    ref: sr/1_train_model.py:34) -> (B, C, h*upscale, w*upscale) in
+    (-1, 1), h = H - pad, the unit's lanes interleaved as a pixel
+    shuffle."""
+    pad = mode_pad(mode)
+    B, C, H, W = x.shape
+    h, w = H - pad, W - pad
+    planes = [x[..., dy: dy + h, dx: dx + w] for dy, dx in mode_taps(mode)]
+    taps = torch.stack(planes, dim=-1)
+    out = apply_mulut_unit(unit_params, taps.reshape(-1, 4))
+    return _interleave_nchw(out.reshape(B, C, h, w, upscale * upscale),
+                            upscale)
 
 
 def unit_upscale(stage: int, stages: int, scale: int) -> int:
@@ -345,3 +367,52 @@ def srnets_predict_fast(stacked_stages: list, x: torch.Tensor, *,
         out = out.reshape(B, C, H, W, upscale, upscale)
         out = out.permute(0, 1, 2, 4, 3, 5)
         return out.reshape(B, C, H * upscale, W * upscale)
+
+
+def dnnet_apply(unit_params: dict, x: torch.Tensor, *,
+                mode: str) -> torch.Tensor:
+    """Denoising/deblocking wrapper: `srnet_apply` at stride 1, no
+    upsampling (ref: common/network.py:229-272)."""
+    return srnet_apply(unit_params, x, mode=mode, upscale=1)
+
+
+def init_dnnets(rng: np.random.Generator, *, nf: int = 64,
+                modes: str = "sdy", stages: int = 2) -> dict:
+    """Stage x mode registry of x1 dense units for denoising/deblocking
+    (the DNNet counterpart of SRNets; ref: common/network.py:229-272), as
+    float32 NumPy arrays from `rng`."""
+    return {f"s{s + 1}_{mode}": init_mulut_unit(rng, nf=nf, upscale=1,
+                                                dense=True)
+            for s in range(stages) for mode in modes}
+
+
+def dnnets_predict(params: dict, x: torch.Tensor, *, modes: str,
+                   stages: int, phase: str = "train") -> torch.Tensor:
+    """The x1 (denoise/deblock) cascade: `srnets_predict` with every stage
+    at upscale 1.  The default phase is "train", as in the JAX package
+    (`srnets_predict`'s is "valid")."""
+    return srnets_predict(params, x, modes=modes, stages=stages, scale=1,
+                          phase=phase)
+
+
+def init_dmnet(rng: np.random.Generator, *, nf: int = 64) -> dict:
+    """Demosaicking unit: a 2x2 bayer cell -> a 3-channel 2x2 output, plain
+    and of depth 4 (ref: common/network.py:276-317, MuLUTUnit('2x2', nf,
+    upscale=2, out_c=3, dense=False)), float32 NumPy arrays from `rng`."""
+    return init_mulut_unit(rng, nf=nf, upscale=2, out_c=3, dense=False)
+
+
+def dmnet_apply(unit_params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Demosaic forward: RGGB bayer (B, C, H, W) in [0, 1], H and W even
+    (C is usually 1) -> (B, C*3, H, W) in (-1, 1).  Each non-overlapping
+    2x2 cell's four pixels are four strided views (ref:
+    common/network.py:296-317); the unit's 12 lanes are (out_c, 2, 2) in
+    PixelShuffle order, interleaved back to full resolution."""
+    B, C, H, W = x.shape
+    h, w = H // 2, W // 2
+    planes = [x[..., 0::2, 0::2], x[..., 0::2, 1::2],
+              x[..., 1::2, 0::2], x[..., 1::2, 1::2]]
+    taps = torch.stack(planes, dim=-1)
+    out = apply_mulut_unit(unit_params, taps.reshape(-1, 4), dense=False)
+    out = out.reshape(B, C, h, w, 3, 2, 2).permute(0, 1, 4, 2, 5, 3, 6)
+    return out.reshape(B, C * 3, H, W)

@@ -117,6 +117,14 @@ def params_from_numpy(params: dict, device) -> dict:
             for unit_key, unit in params.items()}
 
 
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of `params_from_numpy`: a params dict of tensors (any
+    device) -> float32 NumPy arrays on the host, same keys and shapes."""
+    return {unit_key: {name: t.detach().cpu().numpy()
+                       for name, t in unit.items()}
+            for unit_key, unit in params.items()}
+
+
 def save_opt_state_npz(path: str, optimizer) -> None:
     """Persist a `torch.optim` optimizer's per-parameter state (the Adam
     moments and the update count that drives the cosine-LR phase) as

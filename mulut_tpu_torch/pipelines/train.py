@@ -138,6 +138,21 @@ def train_loss(params: dict, im: torch.Tensor, lb: torch.Tensor, *,
     return torch.mean((pred - y) ** 2)
 
 
+def loss_step(optimizer, loss_fn):
+    """`step(params, *batch) -> loss` (the loss before the update,
+    detached): `loss_fn(params, *batch)`, its backward and the optimizer's
+    update of the tensors in place, all under `full_f32_matmul`."""
+    def step(params, *batch):
+        optimizer.zero_grad(set_to_none=True)
+        with full_f32_matmul():
+            loss = loss_fn(params, *batch)
+            loss.backward()
+            optimizer.step()
+        return loss.detach()
+
+    return step
+
+
 def make_train_step(optimizer, *, modes: str, stages: int, scale: int,
                     precision: str = "f32", mesh: list | None = None):
     """One training step `step(params, im, lb) -> loss` (the loss before
@@ -169,15 +184,7 @@ def make_train_step(optimizer, *, modes: str, stages: int, scale: int,
 
         return dp_step
 
-    def step(params, im, lb):
-        optimizer.zero_grad(set_to_none=True)
-        with full_f32_matmul():
-            loss = loss_fn(params, im, lb)
-            loss.backward()
-            optimizer.step()
-        return loss.detach()
-
-    return step
+    return loss_step(optimizer, loss_fn)
 
 
 def make_summary_writer(log_dir: str):
