@@ -266,12 +266,41 @@ K3 serves the students, K1 and K2 their tables, K1 the x1 cascade):
      mosaic byte-equal to the CPU path, its device and host ms; the
      phase's wall time.
 
+Then the command line (`_cli`; no kernel of its own: its test step runs
+K1 and K2):
+
+ 18. a PNG tree written by the port's own codec (`utils.imgio`, no PIL):
+     CLI["div2k"] structured training images (`data.synthetic`) of
+     CLI["hr"]^2 and a Set5 of CLI["set5"] HR sizes, each LR by the port's
+     bicubic downscale (`ops.resize`); `run_evaluation("quick", ...,
+     synthetic=False)` on the card at the reference width (dense nf=64, x4
+     `sdy`, 2 stages, interval 4; the quick preset's 100 train and 20
+     fine-tune steps): every step `ok` and `verified`, no error, no
+     timeout, no dummy LUTs; its test step counted (6 window contractions
+     and 1 tail per image, nothing else); its summary and result PNGs
+     equal to `run_test` on the same tables with device="cpu" (files
+     byte-equal); `sr_torch/4_test_lut.py` as a process on the same
+     folder, its "Dataset Set5" line equal to the summary's;
+     `Pipeline(isolate=True)`: the test step in a spawned process (its
+     summary equal) and a hanging step killed at its budget; the train
+     step in float32 and in bf16 (trainPrecision) on the reference batch
+     (32 of 48^2 from the tree) for dense nf=64 and mxu nf=128 units, ms
+     per step (CUDA events; the median of 3 rounds of 10 steps, the two
+     precisions alternating) beside the card's name and power limit, the
+     bf16 step's loss and gradients against the CPU path's bf16 step at
+     phase 13's gates; `train(opt)` resumed from the runner's own
+     `Model_*.npz` / `Opt_*.npz` (JAX's optimizer-state layout) for 2
+     steps; the test step's K1 and K2 call sites on the first Set5 image
+     (each against its plain version, timings, a `utils.profiling` trace:
+     device busy, idle and gaps, top kernels); the phase's wall time.
+
 Prints a `{"kernels": [...]}` line (K1 in both forms, K2-K11; K8 with the
 float32 head; K3, K6 and K8 at nf=256 under names ending in "_nf256"; K1
 per phase 15 configuration, K2 at six modes and the JAX-boundary K1 at
 C != 16 under names ending in the configuration or "_rank"; phase 17's
 K3 as "stage_ensemble_apply_w_students" and K1 as
-"window_fold_contract_dn_x1") and
+"window_fold_contract_dn_x1"; phase 18's K1 and K2 as
+"window_fold_contract_cli" and "tail_assemble_cli") and
 ends with one `{"ok": true, "device": {...}}` line.  Any failed phase
 raises.
 
@@ -294,11 +323,13 @@ prints each kernel instance's SASS instruction count by opcode
     python3 chip_smoke.py --lut-rank
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --tasks
+    python3 chip_smoke.py --cli
 
 build the kernels and run phase 13 (its deploy timings without phase 6's
 beside them), phase 14 (with ptxas's report of the plain sources), phase
-15 (with ptxas's report of the K1 sources), phase 16 or phase 17 (with
-seed-0 teachers) alone; readings and gates as in the full run.
+15 (with ptxas's report of the K1 sources), phase 16, phase 17 (with
+seed-0 teachers) or phase 18 alone; readings and gates as in the full
+run.
 """
 
 from __future__ import annotations
@@ -645,6 +676,50 @@ def _window_timings(torch, tk, calls, labels, what):
     return tot, per_site
 
 
+def _k2_plain(tk, folded, quads, kw):
+    return tk.tail_assemble_plain(
+        folded, quads, bc=int(np.prod(kw["lead"])), h=kw["h"],
+        wp=tk._pad128(kw["w"]), scale=kw["scale"], davg=kw["davg"])
+
+
+def _k2_check(torch, tk, call, what) -> float:
+    """A recorded `tail_assemble` call against its plain version, byte for
+    byte; returns the max abs error of the packed bytes."""
+    (folded, quads), kw = call
+    got = tk.tail_assemble(folded, quads, **kw)
+    want = _k2_plain(tk, folded, quads, kw)
+    torch.cuda.synchronize()
+    err = (got.view(torch.uint8).int()
+           - want.view(torch.uint8).int()).abs().max().item()
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{what}: tail_assemble differs from plain: max "
+                           f"abs err {err}")
+    print(f"{what} tail_assemble: out {tuple(got.shape)} byte-equal to "
+          "plain")
+    return err
+
+
+def _k2_timings(torch, tk, call, what) -> dict:
+    """ms and plain ms of a recorded `tail_assemble` call and its bytes
+    bound (each mode's four f32 planes read once, the packed words
+    written once)."""
+    (folded, quads), kw = call
+    words = (int(np.prod(kw["lead"])) * kw["h"] * kw["scale"]
+             * tk._pad128(kw["w"]))
+    nmodes = len(folded) + len(quads)
+    k2 = {
+        "ms": _cuda_ms(torch, lambda: tk.tail_assemble(folded, quads, **kw),
+                       20),
+        "plain_ms": _cuda_ms(torch, lambda: _k2_plain(tk, folded, quads, kw),
+                             3),
+        "bound_ms": words * (4 * 4 * nmodes * 4 + 4) / HBM_BYTES_PER_MS,
+    }
+    print(f"{what} tail_assemble: " + " ".join(f"{k}={v:.4f}"
+                                               for k, v in k2.items())
+          + " library_ms=none (no single torch call computes it)")
+    return k2
+
+
 def _boundary_timings(torch, tk, bcalls):
     """The JAX-boundary K1 on recorded inputs (`_k1_checks`): ms, plain
     ms, bound (distinct rows read once, the index, weights and output) and
@@ -674,8 +749,11 @@ def _boundary_timings(torch, tk, bcalls):
 def _profile(torch, cascade, dev_ms: float, runs: int = 3, top: int = 15,
              what: str = "cascade"):
     """Where the device time of `cascade()` (one `what`) goes: torch.profiler
-    over `runs` calls, device time per op (self time, per call)."""
+    over `runs` calls, device time per op (self time, per call;
+    `utils.profiling.device_rows`)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from mulut_tpu_torch.utils.profiling import device_rows
 
     cascade()
     torch.cuda.synchronize()
@@ -684,19 +762,7 @@ def _profile(torch, cascade, dev_ms: float, runs: int = 3, top: int = 15,
         for _ in range(runs):
             cascade()
         torch.cuda.synchronize()
-    kernels, ops = [], []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0)
-        if (t <= 0 or getattr(e, "is_user_annotation", False)
-                or e.key.startswith("Optimizer.")):
-            continue    # a range over other kernels (torch.optim's step)
-        row = (t / runs / 1e3, e.count // runs, e.key)
-        # device-side rows are the kernels themselves; host-side rows are
-        # the torch ops that launched them (same time, counted once each)
-        on_device = "CUDA" in str(getattr(e, "device_type", ""))
-        (kernels if on_device else ops).append(row)
+    kernels, ops = device_rows(prof, runs)
     if not kernels:
         print("profile: the profiler recorded no device time (not measured)")
         return
@@ -2453,18 +2519,7 @@ def main() -> int:
                            f"{len(sites)} and 1")
     wf_err, k1_err, k1_calls = _k1_checks(torch, tk, wf_calls, sites,
                                           "phase 4")
-    (folded, quads), kw = k2_calls[0]
-    got = tk.tail_assemble(folded, quads, **kw)
-    bc = int(np.prod(kw["lead"]))
-    wp = tk._pad128(kw["w"])
-    want = tk.tail_assemble_plain(folded, quads, bc=bc, h=kw["h"], wp=wp,
-                                  scale=kw["scale"], davg=kw["davg"])
-    torch.cuda.synchronize()
-    k2_err = (got.view(torch.uint8).int()
-              - want.view(torch.uint8).int()).abs().max().item()
-    if not torch.equal(got, want):
-        raise RuntimeError(f"tail_assemble differs: max abs err {k2_err}")
-    print(f"K2 tail_assemble: out {tuple(got.shape)} byte-equal to plain")
+    k2_err = _k2_check(torch, tk, k2_calls[0], "K2")
 
     # 5. the main path through the entry point, counted
     from mulut_tpu_torch.ops import unit_kernel as uk
@@ -2528,21 +2583,9 @@ def main() -> int:
     # wf_site_ms: per call site, for phase 13's tables beside these
     wf, wf_site_ms = _window_timings(torch, tk, wf_calls, sites, "phase 6")
     k1 = _boundary_timings(torch, tk, k1_calls)
-    nmodes = len(folded) + len(quads)
-    words = bc * kw["h"] * SCALE * wp
-    k2 = {
-        "ms": _cuda_ms(torch, lambda: tk.tail_assemble(folded, quads, **kw),
-                       20),
-        "plain_ms": _cuda_ms(torch, lambda: tk.tail_assemble_plain(
-            folded, quads, bc=bc, h=kw["h"], wp=wp, scale=kw["scale"],
-            davg=kw["davg"]), 3),
-        "bound_ms": words * (4 * 4 * nmodes * 4 + 4) / HBM_BYTES_PER_MS,
-    }
-    print("K2 tail_assemble: " + " ".join(f"{k}={v:.4f}"
-                                          for k, v in k2.items())
-          + " library_ms=none (no single torch call computes it)")
+    k2 = _k2_timings(torch, tk, k2_calls[0], "K2")
     _profile(torch, cascade, dev_ms)
-    del ev, ev_cpu, wf_calls, k1_calls, k2_calls, folded, quads, kw
+    del ev, ev_cpu, wf_calls, k1_calls, k2_calls
     torch.cuda.empty_cache()
 
     net_entries = _net_mode(torch, tk, imgs)
@@ -2554,6 +2597,7 @@ def main() -> int:
     net_entries += _lut_rank(torch, tk, imgs, out)
     _parallel(torch, tk, imgs)
     net_entries += _tasks(torch, tk, imgs, trained)
+    net_entries += _cli(torch, tk)
 
     print(json.dumps({"kernels": [
         {"name": "window_fold_contract", "route": "cuda",
@@ -4128,6 +4172,317 @@ def _tasks(torch, tk, imgs, teachers=None, *, dev="cuda"):
          "bound_by": "bytes", "library_ms": None}]
 
 
+#: Phase 18 (`_cli`): the PNG tree (DIV2K of `div2k` images at `hr`^2, a
+#: Set5 of `set5` HR sizes, structured images from seed 18), the runner's
+#: config beyond the quick preset (`cfg`: none on the card, the reference
+#: width), the train steps' batch (`batch` of `crop`^2 LR crops from the
+#: tree) and units (`nets`: (arch, nf)), timed in `rounds` alternating
+#: rounds of `steps` steps per precision, the isolated hanging step's
+#: budget in seconds.
+CLI = dict(div2k=8, hr=256, set5=((256, 256), (288, 352), (192, 320)),
+           cfg={}, batch=32, crop=48, nets=(("dense", 64), ("mxu", 128)),
+           steps=10, rounds=3, hang_budget=3)
+
+
+def _png_tree(torch, base, size):
+    """`base`/data as `run_evaluation(synthetic=False)` reads it, written
+    by the port's PNG codec: DIV2K/HR, DIV2K/LR/X4 and SRBenchmark/Set5
+    with HR and LR_bicubic/X4, each LR the port's bicubic downscale
+    (`ops.resize.bicubic_resize_hw`, float32 on the host, rounded)."""
+    from mulut_tpu_torch.data.synthetic import _synth_image
+    from mulut_tpu_torch.ops.resize import bicubic_resize_hw
+    from mulut_tpu_torch.utils.imgio import save_image
+
+    def lr_of(hr):
+        x = torch.from_numpy(np.ascontiguousarray(
+            hr.transpose(2, 0, 1)).astype(np.float32))
+        lr = bicubic_resize_hw(x, hr.shape[0] // SCALE, hr.shape[1] // SCALE)
+        return np.clip(np.round(lr.numpy()), 0, 255).astype(
+            np.uint8).transpose(1, 2, 0)
+
+    rng = np.random.default_rng(18)
+    data = os.path.join(base, "data")
+    for i in range(1, size["div2k"] + 1):
+        hr = _synth_image(rng, size["hr"])
+        save_image(os.path.join(data, "DIV2K", "HR", f"{i:04d}.png"), hr)
+        save_image(os.path.join(data, "DIV2K", "LR", f"X{SCALE}",
+                                f"{i:04d}x{SCALE}.png"), lr_of(hr))
+    set5 = os.path.join(data, "SRBenchmark", "Set5")
+    for k, (h, w) in enumerate(size["set5"]):
+        hr = _synth_image(rng, max(h, w))[:h, :w]
+        save_image(os.path.join(set5, "HR", f"img{k}.png"), hr)
+        save_image(os.path.join(set5, "LR_bicubic", f"X{SCALE}",
+                                f"img{k}.png"), lr_of(hr))
+
+
+def _same_files(a, b) -> list:
+    """The files of directory `a`, each byte-equal to its namesake in
+    `b` (raises otherwise)."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        raise RuntimeError(f"{a} and {b} hold other files")
+    for f in names:
+        with open(os.path.join(a, f), "rb") as fa, \
+                open(os.path.join(b, f), "rb") as fb:
+            if fa.read() != fb.read():
+                raise RuntimeError(f"{f}: bytes differ between {a} and {b}")
+    return names
+
+
+def _cli(torch, tk, *, dev="cuda", sizes=None):
+    """Phase 18: the command line and the step runner on the card (module
+    docstring); returns the kernels-line entries of the test step's K1 and
+    K2.  `dev` and `sizes` (keys of CLI) exist for a rehearsal on the CPU
+    at a small size; the card run takes the defaults."""
+    import dataclasses
+    import functools
+    import tempfile
+
+    from mulut_tpu_torch.data import DIV2K
+    from mulut_tpu_torch.models.srnet import init_srnets
+    from mulut_tpu_torch.models.torch_import import load_params_npz
+    from mulut_tpu_torch.ops import unit_kernel as uk
+    from mulut_tpu_torch.ops.resize import full_f32_matmul
+    from mulut_tpu_torch.pipelines import orchestrator as orch
+    from mulut_tpu_torch.pipelines.evaluate import LutEvaluator, run_test
+    from mulut_tpu_torch.utils import profiling
+    from mulut_tpu_torch.utils.imgio import load_image
+    trm = importlib.import_module("mulut_tpu_torch.pipelines.train")
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    size = dict(CLI, **(sizes or {}))
+    where = None if card else "cpu"     # the runner's device: None = card
+    n_img = len(size["set5"])
+    with tempfile.TemporaryDirectory() as base:
+        _png_tree(torch, base, size)
+        print(f"cli: PNG tree (port codec, no PIL): DIV2K {size['div2k']} x "
+              f"{size['hr']}^2, Set5 {list(size['set5'])}, x{SCALE} LR by the "
+              "port's bicubic downscale")
+
+        # 18.2 the runner, its test step counted
+        counts, dummies = [], []
+        step_test = orch._step_test
+        make_dummies = orch.Pipeline._create_dummy_luts
+
+        def counted_test(cfg):
+            _reset(tk.LAUNCHES, uk.LAUNCHES)
+            out = step_test(cfg)
+            counts.append((dict(tk.LAUNCHES), dict(uk.LAUNCHES)))
+            return out
+
+        def dummy(self, name):
+            dummies.append(name)
+            return make_dummies(self, name)
+
+        orch._step_test, orch.Pipeline._create_dummy_luts = counted_test, dummy
+        t0 = time.perf_counter()
+        try:
+            report = orch.run_evaluation("quick", base, synthetic=False,
+                                         device=where, **size["cfg"])
+        finally:
+            orch._step_test = step_test
+            orch.Pipeline._create_dummy_luts = make_dummies
+        print(f"run_evaluation('quick') on {dev.type}: "
+              f"{time.perf_counter() - t0:.1f} s; steps "
+              + "; ".join(f"{k}: ok={v['ok']} verified={v['verified']} "
+                          f"{v['seconds']} s" for k, v in
+                          report["steps"].items()))
+        bad = {k: v for k, v in report["steps"].items()
+               if not (v["ok"] and v["verified"]) or v["error"]
+               or v.get("timeout")}
+        if bad or dummies or list(report["steps"]) != [
+                "training", "transfer", "finetune", "test"]:
+            raise RuntimeError(f"run_evaluation: steps {bad or report['steps']}"
+                               f", dummy LUTs written {dummies}")
+        launches, ulaunch = counts[0]
+        want = {"gather_fold_contract": 0, "window_fold_contract": 6 * n_img,
+                "tail_assemble": n_img}
+        print(f"run_evaluation test step: {n_img} images, launches "
+              f"{launches}, unit-kernel launches {ulaunch}")
+        if card and (launches != want or any(ulaunch.values())):
+            raise RuntimeError(f"test step launches {launches}, expected "
+                               f"{want} and no unit kernel")
+        summary = report["results"]
+        cfg = orch.MuLutConfig(base_dir=base, mode="quick", device=where,
+                               **size["cfg"])
+        topt = orch._test_opt(cfg)
+        topt.resultRoot = os.path.join(base, "results_cpu")
+        t0 = time.perf_counter()
+        cpu = run_test(topt, device="cpu")
+        sub = os.path.join(os.path.basename(cfg.exp_dir), "Set5", f"X{SCALE}")
+        files = _same_files(os.path.join(cfg.results_dir, sub),
+                            os.path.join(topt.resultRoot, sub))
+        if cpu != summary or len(files) != n_img:
+            raise RuntimeError(f"summary {summary} on {dev.type}, {cpu} on "
+                               f"the CPU path ({len(files)} files)")
+        print(f"run_test on the CPU path ({time.perf_counter() - t0:.1f} s): "
+              f"summary {cpu['Set5']} equal, {len(files)} result PNGs "
+              "byte-equal")
+
+        # 18.3 the step-4 script as a process
+        line = "Dataset Set5 | AVG LUT PSNR: {:.2f} SSIM: {:.4f}".format(
+            *summary["Set5"])
+        script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "sr_torch", "4_test_lut.py")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, script, "-e", cfg.exp_dir, "--testDir",
+             cfg.val_dir, "--resultRoot", os.path.join(base, "results_cli"),
+             "--interval", str(cfg.interval)]
+            + ([] if card else ["--device", "cpu"]),
+            capture_output=True, text=True, timeout=600)
+        got = res.stdout.splitlines()
+        print(f"sr_torch/4_test_lut.py ({time.perf_counter() - t0:.1f} s, "
+              f"exit {res.returncode}): {got}")
+        if res.returncode != 0 or got != [line]:
+            raise RuntimeError(f"4_test_lut.py printed {got}, expected "
+                               f"[{line!r}]; stderr {res.stderr[-2000:]}")
+
+        # 18.4 isolated steps: spawned processes
+        iso = orch.Pipeline(dataclasses.replace(
+            cfg, step_timeouts={"quick": 600}), isolate=True)
+        got = {}
+        t0 = time.perf_counter()
+        iso._run_step("test", functools.partial(orch._step_test, cfg),
+                      verify=lambda: True,
+                      on_result=lambda r: got.setdefault("test", r))
+        real_s = time.perf_counter() - t0
+        hang = orch.Pipeline(dataclasses.replace(
+            cfg, step_timeouts={"quick": size["hang_budget"]}), isolate=True)
+        t0 = time.perf_counter()
+        hang._run_step("hang", functools.partial(time.sleep, 600),
+                       verify=lambda: False)
+        hang_s = time.perf_counter() - t0
+        step = hang.report["steps"]["hang"]
+        print(f"isolate=True: test step in a spawned process {real_s:.1f} s, "
+              f"summary {got.get('test')}; hanging step killed after "
+              f"{hang_s:.1f} s (budget {size['hang_budget']} s): {step}")
+        if (not iso.report["steps"]["test"]["ok"] or got.get("test") != summary
+                or not step.get("timeout") or step["ok"]
+                or hang_s > size["hang_budget"] + 30):
+            raise RuntimeError(f"isolated steps: {iso.report['steps']}, "
+                               f"{step}")
+
+        # 18.5 the train step in float32 and in bf16
+        im, lb = DIV2K(SCALE, cfg.train_dir, size["crop"], seed=0) \
+            .sample_batch(size["batch"])
+        kw = dict(modes=MODES, stages=STAGES, scale=SCALE)
+        for arch, nf in size["nets"]:
+            params = init_srnets(np.random.default_rng(0), nf=nf, arch=arch,
+                                 **kw)
+            # the two precisions alternate, `rounds` means of `steps`
+            # steps each; the median round is reported
+            batch = (torch.from_numpy(im).to(dev),
+                     torch.from_numpy(lb).to(dev))
+            runs = {}
+            for prec in ("f32", "bf16"):
+                p = trm.trainable(params, dev)
+                runs[prec] = (p, trm.make_train_step(trm.make_optimizer(
+                    trm.param_leaves(p), 1e-3, 1e-4, 100), precision=prec,
+                    **kw))
+            rounds = {"f32": [], "bf16": []}
+            for _ in range(size["rounds"]):
+                for prec, (p, step) in runs.items():
+                    rounds[prec].append(_cuda_ms(
+                        torch, lambda: step(p, *batch), size["steps"]))
+            ms = {k: float(np.median(v)) for k, v in rounds.items()}
+            del runs, batch
+            io = {}
+            for d in (dev, torch.device("cpu")):
+                p = trm.trainable(params, d)
+                leaves = [((u, n), p[u][n]) for u in sorted(p)
+                          for n in sorted(p[u])]
+                with full_f32_matmul():
+                    io[d.type] = _loss_and_grads(torch, lambda: trm.train_loss(
+                        p, torch.from_numpy(im).to(d),
+                        torch.from_numpy(lb).to(d), precision="bf16", **kw),
+                        leaves)
+                del p, leaves
+            _grad_gate(f"bf16 train step, {arch} nf={nf}, card vs CPU",
+                       io[dev.type], io["cpu"], TRAIN_LOSS_REL,
+                       TRAIN_GRAD_REL)
+            print(f"train step {arch} nf={nf}, {size['batch']} x "
+                  f"{size['crop']}^2: f32 {ms['f32']:.3f} ms, bf16 "
+                  f"{ms['bf16']:.3f} ms per step (CUDA events, the median "
+                  f"of {size['rounds']} alternating rounds of {size['steps']}"
+                  f" steps: f32 " + " ".join(f"{x:.3f}" for x in
+                                               rounds["f32"])
+                  + ", bf16 " + " ".join(f"{x:.3f}" for x in rounds["bf16"])
+                  + f"; bf16/f32 {ms['bf16'] / ms['f32']:.3f}); card: "
+                  f"{_card() if card else 'the CPU (rehearsal)'}")
+            del io
+
+        # 18.6 resume the runner's own Opt_*.npz on the card
+        k = cfg.total_iter
+        ropt = orch._train_opt(cfg)
+        ropt.startIter, ropt.totalIter = k, k + 2
+        ropt.saveStep, ropt.valStep, ropt.displayStep = k + 2, 10 ** 9, 1
+        rec, restore = _timed_steps(torch, trm, "make_train_step", dev)
+        try:
+            trm.train(ropt, device=dev)
+        finally:
+            restore()
+        _step_readings(torch, rec, f"train(opt) resumed at {k}")
+        with open(os.path.join(cfg.exp_dir, "train.log")) as f:
+            resumed = f"Resumed params+optimizer from iter {k}" in f.read()
+        saved = np.load(os.path.join(cfg.exp_dir, f"Opt_{k + 2:06d}.npz"))
+        n_leaves = 2 * sum(len(u) for u in load_params_npz(
+            os.path.join(cfg.exp_dir, f"Model_{k:06d}.npz")).values()) + 2
+        counts_ = (int(saved["leaf_0"]), int(saved[f"leaf_{n_leaves - 1}"]))
+        print(f"resume: Opt_{k:06d}.npz read ({resumed}); Opt_{k + 2:06d}.npz "
+              f"{len(saved.files)} leaves (optax's layout {n_leaves}), "
+              f"counts {counts_}")
+        if not resumed or len(saved.files) != n_leaves or counts_ != (k + 2,
+                                                                      k + 2):
+            raise RuntimeError("resume from the runner's Opt_*.npz failed")
+
+        # 18.7 the test step's K1 and K2 call sites on the first image
+        ev = LutEvaluator.from_folder(cfg.exp_dir, stages=STAGES, modes=MODES,
+                                      scale=SCALE, interval=cfg.interval,
+                                      device=dev)
+        lr = load_image(os.path.join(cfg.val_dir, "Set5", "LR_bicubic",
+                                     f"X{SCALE}", "img0.png"))
+        wf_calls, k2_calls = _record_calls(
+            tk, ("window_fold_contract", "tail_assemble"),
+            lambda: ev.upscale(lr))
+        sites = [f"s{s + 1}_{m}" for s in range(STAGES) for m in MODES]
+        wf_err, _, _ = _k1_checks(torch, tk, wf_calls, sites, "phase 18")
+        k2_err = _k2_check(torch, tk, k2_calls[0], "phase 18")
+        wf, _ = _window_timings(torch, tk, wf_calls, sites, "phase 18")
+        k2 = _k2_timings(torch, tk, k2_calls[0], "phase 18")
+        trace_dir = os.path.join(base, "trace")
+        ev.upscale(lr)
+        with profiling.trace(trace_dir):
+            for _ in range(3):
+                ev.upscale(lr)
+        tl = profiling.device_timeline(trace_dir)
+        if tl:
+            print(f"phase 18 trace, 3 x upscale {lr.shape}: device span "
+                  f"{tl['span_ms']:.3f} ms, busy {tl['busy_ms']:.3f}, idle "
+                  f"{tl['idle_ms']:.3f} (idle share "
+                  f"{tl['idle_ms'] / tl['span_ms']:.3f}); longest gaps "
+                  + ", ".join(f"{g:.3f} ms after {a[:40]}"
+                              for g, a, _ in tl["gaps"][:3]))
+            for t, name, n in profiling.op_breakdown(trace_dir, top=6):
+                print(f"  {t / 3:8.3f} ms per call  x{n // 3:<3d} {name[:90]}")
+        else:
+            print("phase 18 trace: no device events (not measured)")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return [
+        {"name": "window_fold_contract_cli", "route": "cuda",
+         "source": SOURCE_K1W, "replaces": REPLACES_K1,
+         "launches": launches["window_fold_contract"], "max_abs_err": wf_err,
+         "ms": wf["ms"], "plain_ms": wf["plain_ms"],
+         "bound_ms": wf["bound_ms"], "bound_by": "bytes", "library_ms": None},
+        {"name": "tail_assemble_cli", "route": "cuda", "source": SOURCE_K2,
+         "replaces": REPLACES_K2, "launches": launches["tail_assemble"],
+         "max_abs_err": k2_err, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": "bytes",
+         "library_ms": None}]
+
+
 def _k3_gate(what, card, ulaunch, count):
     print(f"{what}: unit-kernel launches {ulaunch}")
     if card and ulaunch != _only(ulaunch, "stage_ensemble_apply_w", count):
@@ -4150,9 +4505,9 @@ def _net_equal(torch, what, got, want):
 
 
 def _phase_only(phase) -> int:
-    """`--training`, `--nf256`, `--lut-rank`, `--parallel` and `--tasks`:
-    the card, the kernel build (with ptxas's report for `--nf256` and
-    `--lut-rank`) and phase 13, 14, 15, 16 or 17 alone."""
+    """`--training`, `--nf256`, `--lut-rank`, `--parallel`, `--tasks` and
+    `--cli`: the card, the kernel build (with ptxas's report for `--nf256`
+    and `--lut-rank`) and phase 13, 14, 15, 16, 17 or 18 alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4173,6 +4528,8 @@ def _phase_only(phase) -> int:
         _parallel(torch, tk, imgs)
     elif phase == "tasks":
         print(json.dumps({"kernels": _tasks(torch, tk, imgs)}))
+    elif phase == "cli":
+        print(json.dumps({"kernels": _cli(torch, tk)}))
     elif phase == "lut-rank":
         _ptxas_report({k: v for k, v in logs.items()
                        if k in ("window_fold", "fold_contract")})
@@ -4192,7 +4549,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sass"]:
         sys.exit(_sass(sys.argv[2:]))
     if sys.argv[1:2] in (["--training"], ["--nf256"], ["--lut-rank"],
-                         ["--parallel"], ["--tasks"]):
+                         ["--parallel"], ["--tasks"], ["--cli"]):
         sys.exit(_phase_only(sys.argv[1][2:]))
     if sys.argv[1:2] == ["--ab-one"]:
         one = {"plain": _plain_ab_one, "w8a8": _w8a8_ab_one}[sys.argv[2]]

@@ -14,6 +14,14 @@ Slice 14: distillation (`pipelines.distill`: plain students fitted to
 dense teachers, served through net mode's kernels) and the non-SR tasks
 (`pipelines.tasks`: denoise and deblock through the x1 LUT cascade,
 demosaic through one 12-lane simplex pass).
+Slice 15: the command line (`sr_torch/` beside the repo's `sr/`, on
+`utils.options`), step 4's CLI functions (`pipelines.evaluate.run_test`,
+`eval_dataset`, `process_single_image`), the step runner
+(`pipelines.orchestrator`), `utils.profiling` on `torch.profiler`, a PNG
+codec of its own (`utils.imgio`), trainPrecision="bf16" and JAX's
+optimizer-state checkpoints.
 The kernels are hand-written CUDA in `ops/csrc/`.  Imports torch, numpy
-and scipy; PIL only inside the functions that read or write images.
+and scipy; PIL only inside the functions that resize images or read or
+write a file that is not an 8-bit PNG (a JPEG, a palette PNG), matplotlib
+only inside the analyzer's plot.
 """

@@ -5,7 +5,9 @@ threaded bicubic downscaler (ref: sr/Test_dataset.py:1-42) using a
 thread pool (PIL releases the GIL during resize/IO).  HR images are
 modcropped per scale so LR * scale == HR exactly, matching the loader's
 shape assertion (ref: sr/data.py:163-166).  NumPy twin of
-`mulut_tpu.data.degrade`; PIL is imported inside the functions.
+`mulut_tpu.data.degrade`; PIL is imported inside the functions for the
+bicubic resize (and to read an image that is not a PNG), PNGs go through
+the port's own codec (`utils.imgio`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from ..utils.imgio import as_rgb, read_png, save_image
 from ..utils.metrics import modcrop
 
 
@@ -39,8 +42,6 @@ def generate_lr_pyramid(hr_dir: str, out_dir: str, *, scales=(2, 3, 4),
 
     Returns the number of HR images processed.
     """
-    from PIL import Image
-
     files = sorted(
         f for f in os.listdir(hr_dir)
         if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp"))
@@ -48,13 +49,21 @@ def generate_lr_pyramid(hr_dir: str, out_dir: str, *, scales=(2, 3, 4),
     for s in scales:
         os.makedirs(os.path.join(out_dir, f"X{s}"), exist_ok=True)
 
+    def _rgb(path: str) -> np.ndarray:
+        img = read_png(path)
+        if img is not None:
+            return as_rgb(img)
+        from PIL import Image
+
+        return np.array(Image.open(path).convert("RGB"))
+
     def _one(fname: str):
-        hr = np.array(Image.open(os.path.join(hr_dir, fname)).convert("RGB"))
+        hr = _rgb(os.path.join(hr_dir, fname))
         stem, _ = os.path.splitext(fname)
         for s in scales:
             lr = bicubic_lr(hr, s)
             out_name = f"{stem}x{s}.png" if name_suffix else f"{stem}.png"
-            Image.fromarray(lr).save(os.path.join(out_dir, f"X{s}", out_name))
+            save_image(os.path.join(out_dir, f"X{s}", out_name), lr)
 
     with ThreadPoolExecutor(max_workers=workers or os.cpu_count()) as ex:
         list(ex.map(_one, files))

@@ -5,8 +5,9 @@ images + bicubic LR pyramids) and a tiny benchmark tree, so the full
 train -> transfer -> finetune -> test pipeline runs hermetically — the same
 role as the fork orchestrator's minimal-dataset generator
 (ref: sr/main.py:401-563), implemented independently.  NumPy twin of
-`mulut_tpu.data.synthetic`; PIL is imported inside the functions that
-resize or write PNGs, so `_synth_image` runs without it.
+`mulut_tpu.data.synthetic`; PNGs go through the port's own codec
+(`utils.imgio`) and PIL is imported only inside `_bicubic_down`, the
+bicubic resize, so `_synth_image` runs without it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from ..utils.imgio import save_image
 
 
 def _synth_image(rng: np.random.Generator, size: int) -> np.ndarray:
@@ -58,8 +61,6 @@ def create_synthetic_dataset(
 
     Returns dict with train_dir, val_dir and the file list used.
     """
-    from PIL import Image
-
     rng = np.random.default_rng(seed)
     div2k = os.path.join(root, "DIV2K")
     bench = os.path.join(root, "SRBenchmark")
@@ -70,11 +71,10 @@ def create_synthetic_dataset(
     files = [str(i).zfill(4) for i in range(1, n_train + 1)]
     for f in files:
         hr = _synth_image(rng, size)
-        Image.fromarray(hr).save(os.path.join(div2k, "HR", f"{f}.png"))
+        save_image(os.path.join(div2k, "HR", f"{f}.png"), hr)
         for s in scales:
-            Image.fromarray(_bicubic_down(hr, s)).save(
-                os.path.join(div2k, "LR", f"X{s}", f"{f}x{s}.png")
-            )
+            save_image(os.path.join(div2k, "LR", f"X{s}", f"{f}x{s}.png"),
+                       _bicubic_down(hr, s))
 
     os.makedirs(os.path.join(bench, "Set5", "HR"), exist_ok=True)
     for s in scales:
@@ -82,10 +82,10 @@ def create_synthetic_dataset(
     val_names = ["alpha", "beta"][:n_val]
     for name in val_names:
         hr = _synth_image(rng, size)
-        Image.fromarray(hr).save(os.path.join(bench, "Set5", "HR", f"{name}.png"))
+        save_image(os.path.join(bench, "Set5", "HR", f"{name}.png"), hr)
         for s in scales:
-            Image.fromarray(_bicubic_down(hr, s)).save(
-                os.path.join(bench, "Set5", f"LR_bicubic/X{s}", f"{name}.png")
-            )
+            save_image(
+                os.path.join(bench, "Set5", f"LR_bicubic/X{s}", f"{name}.png"),
+                _bicubic_down(hr, s))
 
     return {"train_dir": div2k, "val_dir": bench, "files": files}

@@ -53,23 +53,80 @@ def unit_layout(params: dict) -> tuple:
     return bool(dense), hidden
 
 
+#: the matmul precisions of the float32 units: "f32" full float32 (the
+#: JAX package's Precision.HIGHEST), "bf16" inputs rounded to bf16 with
+#: float32 products and sums (Precision.DEFAULT on a TPU)
+PRECISIONS = ("f32", "bf16")
+
+
+def _bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 a @ bf16 b with float32 output: on a CUDA device one cuBLAS
+    bf16 matmul that accumulates and writes float32; on the CPU the same
+    function as a float32 matmul of the bf16 values (their products are
+    exact in float32)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    with full_f32_matmul():
+        return a.float() @ b.float()
+
+
+class Bf16Dot(torch.autograd.Function):
+    """`a @ b` for 2-D float32 a and b as a TPU's single-pass dot
+    (Precision.DEFAULT) computes it, forward and backward: each input
+    rounded to bf16 (round to nearest even), products, sums and the output
+    in float32.  The backward's two products, g @ b.T and a.T @ g, round
+    their inputs (the incoming gradient g too) in the same way, as XLA's
+    transposed dots keep the forward's precision.  Autograd through
+    `a.bfloat16().float()` would leave the backward's products in float32
+    and round the gradients to bf16 instead."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.save_for_backward(a16, b16)
+        return _bf16_product(a16, b16)
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        g16 = g.to(torch.bfloat16)
+        ga = _bf16_product(g16, b16.T) if ctx.needs_input_grad[0] else None
+        gb = _bf16_product(a16.T, g16) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _dot(precision: str):
+    """The unit's matmul at `precision` (`PRECISIONS`); the "f32" one
+    runs inside the callers' `full_f32_matmul` block."""
+    if precision == "bf16":
+        return Bf16Dot.apply
+    if precision != "f32":
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    return torch.matmul
+
+
 def apply_mulut_unit(params: dict, x4: torch.Tensor, *,
-                     dense: bool | None = None) -> torch.Tensor:
+                     dense: bool | None = None,
+                     precision: str = "f32") -> torch.Tensor:
     """(N, 4) tap pixels -> (N, out_c*upscale**2) in (-1, 1), float32.
 
     relu head, dense-concat (or plain) 1x1 layers, linear output, tanh
     (ref: common/network.py:96-105).  Matmuls run in full float32 (TF32
-    off), as the JAX unit runs at Precision.HIGHEST.
+    off), as the JAX unit runs at Precision.HIGHEST; `precision="bf16"`
+    runs them as `Bf16Dot` (Precision.DEFAULT on a TPU, the JAX package's
+    trainPrecision="bf16"), every other op still in float32.
     """
     inferred, hidden = unit_layout(params)
     if dense is None:
         dense = inferred
+    dot = _dot(precision)
     with full_f32_matmul():
-        x = torch.relu(x4 @ params["w1"] + params["b1"])
+        x = torch.relu(dot(x4, params["w1"]) + params["b1"])
         for i in hidden:
-            feat = torch.relu(x @ params[f"w{i}"] + params[f"b{i}"])
+            feat = torch.relu(dot(x, params[f"w{i}"]) + params[f"b{i}"])
             x = torch.cat([x, feat], dim=-1) if dense else feat
-        return torch.tanh(x @ params["w6"] + params["b6"])
+        return torch.tanh(dot(x, params["w6"]) + params["b6"])
 
 
 def init_mulut_c_unit(rng: np.random.Generator, *, nf: int = 64) -> dict:

@@ -122,10 +122,12 @@ def _rotation_taps_batch(x: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 def srnet_rotation_lanes(unit_params: dict, x: torch.Tensor, *, mode: str,
-                         upscale: int, unit_impl: str = "xla") -> torch.Tensor:
+                         upscale: int, unit_impl: str = "xla",
+                         precision: str = "f32") -> torch.Tensor:
     """All-4-rotation unit outputs as un-rotated lanes:
     (4, B, C, H, W, upscale**2) in (-1, 1) for an unpadded x.  unit_impl
-    "xla" runs `apply_mulut_unit`; "pallas" runs a dense unit through the
+    "xla" runs `apply_mulut_unit` at `precision` ("f32" or "bf16",
+    `blocks.PRECISIONS`); "pallas" runs a dense unit through the
     single-unit kernel K10 (bf16 params and x), and a plain unit through
     `apply_mulut_unit` as the JAX package does."""
     if unit_impl not in ("xla", "pallas"):
@@ -137,7 +139,8 @@ def srnet_rotation_lanes(unit_params: dict, x: torch.Tensor, *, mode: str,
         out = uk.fused_unit_apply(unit_params, taps.reshape(-1, 4),
                                   out_dim=upscale * upscale)
     else:
-        out = apply_mulut_unit(unit_params, taps.reshape(-1, 4))
+        out = apply_mulut_unit(unit_params, taps.reshape(-1, 4),
+                               precision=precision)
     out = out.reshape(*shape[:-1], upscale * upscale)
     if upscale > 1:
         out = torch.stack([
@@ -157,7 +160,8 @@ def _interleave_nchw(out: torch.Tensor, upscale: int) -> torch.Tensor:
 
 def srnets_predict(params: dict, x: torch.Tensor, *, modes: str, stages: int,
                    scale: int, phase: str = "valid",
-                   unit_impl: str = "xla") -> torch.Tensor:
+                   unit_impl: str = "xla",
+                   precision: str = "f32") -> torch.Tensor:
     """Cascade forward (ref: sr/1_train_model.py:26-45): per rotation the
     unit output is scaled by 127 and rounded before accumulating; inner
     stages mix with avg 4M, bias 127, clip and renormalize; the final stage
@@ -173,15 +177,21 @@ def srnets_predict(params: dict, x: torch.Tensor, *, modes: str, stages: int,
     jitted form: `uk.inner_mix`, `div_add`).  bf16 x and params
     (`unit_impl="pallas"` on dense units: K10; valid phase only) keep the
     JAX package's dtype flow: every scale, round, sum (over float32 partial
-    sums) and mix is a bf16 op."""
+    sums) and mix is a bf16 op.
+
+    `precision` is the float32 units' matmul precision: "f32" (the
+    default, the JAX package's Precision.HIGHEST) or "bf16" (its
+    Precision.DEFAULT on a TPU, trainPrecision="bf16": matmul inputs
+    rounded to bf16, `blocks.Bf16Dot`; everything else float32)."""
     if phase not in ("train", "valid"):
         raise ValueError(f"phase must be 'train' or 'valid', got {phase!r}")
     train = phase == "train"
     bf16 = x.dtype == torch.bfloat16
     if train and bf16:
         raise NotImplementedError(
-            "the train phase runs float32 (trainPrecision='bf16' is ROADMAP "
-            "Queue A item 6)")
+            "the train phase takes float32 x (trainPrecision='bf16' keeps "
+            "float32 tensors and rounds only the matmul inputs: pass "
+            "precision='bf16')")
     rnd = round_ste if train else torch.round
     M = len(modes)
     for s in range(stages):
@@ -191,7 +201,8 @@ def srnets_predict(params: dict, x: torch.Tensor, *, modes: str, stages: int,
         for mode in modes:
             lanes = srnet_rotation_lanes(params[f"s{stage}_{mode}"], x,
                                          mode=mode, upscale=upscale,
-                                         unit_impl=unit_impl)
+                                         unit_impl=unit_impl,
+                                         precision=precision)
             pred = pred + rnd(lanes * 127.0).sum(dim=0)
         if stage == stages:
             if train:

@@ -2,8 +2,8 @@
 and the carry-over of NumPy parameter dicts into the port's tensors.
 
 Torch twin of `mulut_tpu.models.torch_import`; the optimizer state is
-saved in the port's own format (a `torch.optim` state dict as arrays),
-not as optax's leaves.  The reference saves whole-model
+saved as the JAX package saves it (optax's leaves, `leaf_{k}`), so one
+experiment folder resumes in either package.  The reference saves whole-model
 pickles (ref: sr/1_train_model.py:63-64) whose unpickling needs the classes
 `model.SRNets`, `common.network.*`; minimal stub classes are registered
 under those names so pickle can restore instance state, then the
@@ -125,38 +125,99 @@ def params_to_numpy(params: dict) -> dict:
             for unit_key, unit in params.items()}
 
 
-def save_opt_state_npz(path: str, optimizer) -> None:
-    """Persist a `torch.optim` optimizer's per-parameter state (the Adam
-    moments and the update count that drives the cosine-LR phase) as
-    arrays `state/{param index}/{name}`.
+def _opt_params(optimizer) -> list:
+    """The optimizer's parameters in its groups' order (the JAX package's
+    leaf order for the pipelines' optimizers)."""
+    return [p for g in optimizer.param_groups for p in g["params"]]
 
-    Completes the reference's abandoned intent — its optimizer save is
-    commented out (ref: sr/1_train_model.py:65-66) and its resume is broken
-    (ref: sr/1_train_model.py:157-164) — so a resumed run follows the same
-    trajectory as an uninterrupted one."""
-    flat = {}
-    for i, st in optimizer.state_dict()["state"].items():
-        for name, val in st.items():
-            flat[f"state/{i}/{name}"] = torch.as_tensor(val).detach().cpu() \
-                .numpy()
-    np.savez(path, **flat)
+
+def save_opt_state_npz(path: str, optimizer) -> None:
+    """Persist an `OptaxAdam` optimizer's state (the Adam moments and the
+    update count that drives the cosine-LR phase) as the JAX package's
+    `save_opt_state_npz` writes optax's state: arrays `leaf_{k}` in tree
+    order.  For `optax.adam` (and `optax.adamw`, whose weight-decay state
+    has no leaves) under the cosine schedule, with n parameters in leaf
+    order, that is
+
+        leaf_0                    Adam's count (int32 scalar)
+        leaf_1 .. leaf_n          mu, one per parameter (float32)
+        leaf_{n+1} .. leaf_{2n}   nu, one per parameter (float32)
+        leaf_{2n+1}               the schedule's count (int32 scalar)
+
+    and both counts are the update count.  Completes the reference's
+    abandoned intent — its optimizer save is commented out (ref:
+    sr/1_train_model.py:65-66) and its resume is broken (ref:
+    sr/1_train_model.py:157-164) — so a resumed run follows the same
+    trajectory as an uninterrupted one, in either package."""
+    params = _opt_params(optimizer)
+    states = [optimizer.state.get(p, {}) for p in params]
+    counts = {int(st["step"]) if st else 0 for st in states}
+    if len(counts) != 1:
+        raise ValueError(f"optimizer state: parameters at different update "
+                         f"counts {sorted(counts)}; optax keeps one count")
+    count = np.int32(counts.pop())
+
+    def moment(p, st, name):
+        if not st:
+            return np.zeros(tuple(p.shape), np.float32)
+        return st[name].detach().cpu().numpy().astype(np.float32)
+
+    leaves = ([count] + [moment(p, st, "mu") for p, st in zip(params, states)]
+              + [moment(p, st, "nu") for p, st in zip(params, states)]
+              + [count])
+    np.savez(path, **{f"leaf_{k}": np.asarray(a) for k, a in
+                      enumerate(leaves)})
 
 
 def load_opt_state_npz(path: str, template):
-    """Restore a state saved by `save_opt_state_npz` into `template`, an
-    optimizer of the same config over the same parameters (it supplies
-    the parameter groups; the file supplies the state), and return it."""
+    """Restore an optimizer state into `template`, an `OptaxAdam` of the
+    same config over the same parameters (it supplies the parameter
+    groups; the file supplies the state), and return it.
+
+    Reads the JAX package's layout (`save_opt_state_npz` of either
+    package: optax's leaves for adam/adamw under the cosine schedule), and
+    the `state/{param index}/{name}` arrays the port wrote before it.  A
+    file whose leaves do not fit the optimizer (another parameter count,
+    another optimizer chain, a moment of another shape, the two counts
+    apart) raises ValueError, naming what differs."""
     flat = np.load(path)
-    state: dict = {}
-    for k in flat.files:
-        _, i, name = k.split("/")
-        state.setdefault(int(i), {})[name] = torch.from_numpy(flat[k])
+    params = _opt_params(template)
+    n = len(params)
     groups = template.state_dict()["param_groups"]
-    n = sum(len(g["params"]) for g in groups)
-    if sorted(state) != list(range(n)):
-        raise ValueError(
-            f"optimizer-state mismatch: {path} holds state for {len(state)} "
-            f"parameters, the optimizer has {n} — was the model config "
-            "changed?")
+    if any(k.startswith("state/") for k in flat.files):
+        state: dict = {}
+        for k in flat.files:
+            _, i, name = k.split("/")
+            state.setdefault(int(i), {})[name] = torch.from_numpy(flat[k])
+        if sorted(state) != list(range(n)):
+            raise ValueError(
+                f"optimizer-state mismatch: {path} holds state for "
+                f"{len(state)} parameters, the optimizer has {n} — was the "
+                "model config changed?")
+    else:
+        leaves = len(flat.files)
+        if sorted(flat.files) != sorted(f"leaf_{k}" for k in range(leaves)) \
+                or leaves != 2 * n + 2:
+            raise ValueError(
+                f"optimizer-state leaf count mismatch: {path} has {leaves} "
+                f"leaves, optax's adam over {n} parameters has {2 * n + 2} "
+                "(its count, n first moments, n second moments, the "
+                "schedule's count) — was the model or optimizer config "
+                "changed?")
+        count, sched = int(flat["leaf_0"]), int(flat[f"leaf_{2 * n + 1}"])
+        if count != sched:
+            raise ValueError(f"optimizer state {path}: Adam's count {count} "
+                             f"and the schedule's count {sched} differ")
+        state = {}
+        for i, p in enumerate(params):
+            mu, nu = flat[f"leaf_{1 + i}"], flat[f"leaf_{1 + n + i}"]
+            if mu.shape != tuple(p.shape) or nu.shape != tuple(p.shape):
+                raise ValueError(
+                    f"optimizer state {path}: parameter {i} is "
+                    f"{tuple(p.shape)}, its moments {mu.shape} and "
+                    f"{nu.shape}")
+            state[i] = {"step": torch.tensor(count, dtype=torch.int64),
+                        "mu": torch.from_numpy(mu.astype(np.float32)),
+                        "nu": torch.from_numpy(nu.astype(np.float32))}
     template.load_state_dict({"state": state, "param_groups": groups})
     return template

@@ -16,6 +16,9 @@ Torch twins of `mulut_tpu.pipelines.evaluate`:
   (`models.srnet.srnets_predict_fast`), or with `quant` as W8A8 int8
   units (`ops.quant`) through the same forward; batches shard over
   several devices (`n_devices`).
+- `eval_dataset`, `run_test` and `process_single_image`: the step-4 CLI's
+  path into `LutEvaluator` (ref: sr/4_test_lut.py, sr/5_test_lut.py), on
+  the card unless `device="cpu"` is given.
 """
 
 from __future__ import annotations
@@ -51,8 +54,9 @@ from ..ops.tail_kernel import (
     supports_tail_kernel,
 )
 from ..parallel.mesh import mesh_for, pad_batch, replicate_tree, shard_batch
+from ..utils.imgio import load_image, save_image
 from ..utils.lut_io import load_luts
-from ..utils.metrics import _YCBCR_O, _YCBCR_T
+from ..utils.metrics import _YCBCR_O, _YCBCR_T, modcrop, psnr_ssim_y
 
 
 def _rgb_to_ycc(rgb: torch.Tensor) -> torch.Tensor:
@@ -499,3 +503,96 @@ class NetEvaluator:
         """(H, W, 3) uint8 RGB -> (H*s, W*s, 3) uint8 (see
         `upscale_yuv_batch`)."""
         return self.upscale_yuv_batch(img_rgb[None])[0]
+
+
+def eval_dataset(evaluator: LutEvaluator, test_dir: str, dataset: str,
+                 result_path: str | None = None, *, lut_name: str = "LUT_ft",
+                 interval: int = 4):
+    """Evaluate one benchmark dataset; save result PNGs; return per-image
+    (psnr, ssim) (ref: sr/4_test_lut.py:240-316, fixed LR path per
+    sr/5_test_lut.py:527).  Runs where `evaluator` runs."""
+    scale = evaluator.scale
+    hr_dir = os.path.join(test_dir, dataset, "HR")
+    lr_dir = os.path.join(test_dir, dataset, f"LR_bicubic/X{scale}")
+    files = sorted(os.listdir(hr_dir))
+
+    imgs_lr = [load_image(os.path.join(lr_dir, f)) for f in files]
+    gts = [modcrop(load_image(os.path.join(hr_dir, f)), scale) for f in files]
+    if getattr(evaluator, "bucket", 0):
+        # whole-dataset batched dispatch: one dispatch per bucket shape
+        # instead of the reference's per-image Pool(24) fan-out
+        outs = evaluator.upscale_many(imgs_lr)
+    else:
+        outs = [evaluator.upscale(img) for img in imgs_lr]
+
+    results = []
+    for f, img_gt, img_out in zip(files, gts, outs):
+        if result_path is not None:
+            save_image(
+                os.path.join(
+                    result_path, f"{f[:-4]}_{lut_name}_{8 - interval}bit.png"
+                ),
+                img_out,
+            )
+        results.append(psnr_ssim_y(img_gt, img_out, scale))
+    return results
+
+
+def run_test(opt, datasets=("Set5",), device=None) -> dict:
+    """Step-4 CLI behavior: load LUTs, evaluate datasets, print summary.
+    Runs on `device`, default `opt.device` (the `--device` flag), and on
+    the card when both are None."""
+    if device is None:
+        device = getattr(opt, "device", None)
+    evaluator = LutEvaluator.from_folder(
+        opt.expDir, stages=opt.stages, modes=opt.modes, scale=opt.scale,
+        interval=opt.interval, lut_name=opt.lutName,
+        bucket=getattr(opt, "evalBucket", 0),
+        band=getattr(opt, "evalBand", 0),
+        n_devices=getattr(opt, "gpuNum", 1),
+        device=device,
+    )
+    exp_name = opt.expDir.rstrip("/").split("/")[-1]
+    summary = {}
+    for dataset in datasets:
+        result_path = os.path.join(
+            opt.resultRoot, exp_name, dataset, f"X{opt.scale}"
+        )
+        os.makedirs(result_path, exist_ok=True)
+        results = eval_dataset(
+            evaluator, opt.testDir, dataset, result_path,
+            lut_name=opt.lutName, interval=opt.interval
+        )
+        arr = np.asarray(results)
+        print(
+            "Dataset {} | AVG LUT PSNR: {:.2f} SSIM: {:.4f}".format(
+                dataset, arr[:, 0].mean(), arr[:, 1].mean()
+            )
+        )
+        summary[dataset] = (float(arr[:, 0].mean()), float(arr[:, 1].mean()))
+    return summary
+
+
+def process_single_image(image_path: str, lut_folder: str, output_path: str | None
+                         = None, *, stages: int = 2, modes: str = "sdy",
+                         scale: int = 4, interval: int = 4,
+                         lut_name: str = "LUT_ft", gt_path: str | None = None,
+                         device=None):
+    """Single-image API (ref: sr/5_test_lut.py:241-414), on `device`
+    (None: the card).
+
+    Returns (sr_image, metrics_or_None); metrics = (psnr, ssim) when gt given.
+    """
+    evaluator = LutEvaluator.from_folder(
+        lut_folder, stages=stages, modes=modes, scale=scale,
+        interval=interval, lut_name=lut_name, device=device
+    )
+    img_lr = load_image(image_path)
+    img_out = evaluator.upscale(img_lr)
+    if output_path:
+        save_image(output_path, img_out)
+    metrics = None
+    if gt_path:
+        img_gt = modcrop(load_image(gt_path), scale)
+        metrics = psnr_ssim_y(img_gt, img_out, scale)
+    return img_out, metrics

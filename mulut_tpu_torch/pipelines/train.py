@@ -6,7 +6,11 @@ cascade in its train phase, MSE, Adam) on one card, float32 with TF32 off
 the optimizer's arithmetic (optax's Adam / AdamW), STE rounding, loss and
 log formats match the JAX package.  `gpuNum > 1` runs data-parallel steps
 over several devices (`parallel.mesh.data_parallel_step`);
-`trainPrecision="bf16"` raises NotImplementedError (ROADMAP Queue A).
+`trainPrecision="bf16"` is the JAX package's mixed-precision step: the
+units' matmuls take bf16-rounded inputs with float32 products, sums and
+outputs, forward and backward (`models.blocks.Bf16Dot`), and every other
+tensor (params, activations, STE rounds, loss, grads, Adam state) stays
+float32.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from ..data import Provider, SRBenchmark
+from ..models.blocks import PRECISIONS
 from ..models.srnet import init_srnets, srnets_predict
 from ..models.torch_import import (
     load_opt_state_npz,
@@ -128,13 +133,15 @@ def trainable(params: dict, device) -> dict:
 
 
 def train_loss(params: dict, im: torch.Tensor, lb: torch.Tensor, *,
-               modes: str, stages: int, scale: int) -> torch.Tensor:
+               modes: str, stages: int, scale: int,
+               precision: str = "f32") -> torch.Tensor:
     """MSE of the train-phase cascade on a uint8 batch, normalized on the
-    card as XLA does `/ 255` (a multiply by float32(1/255))."""
+    card as XLA does `/ 255` (a multiply by float32(1/255)); the units'
+    matmuls at `precision` ("f32" or "bf16")."""
     x = im.to(torch.float32) * _INV255
     y = lb.to(torch.float32) * _INV255
     pred = srnets_predict(params, x, modes=modes, stages=stages, scale=scale,
-                          phase="train")
+                          phase="train", precision=precision)
     return torch.mean((pred - y) ** 2)
 
 
@@ -158,7 +165,10 @@ def make_train_step(optimizer, *, modes: str, stages: int, scale: int,
     """One training step `step(params, im, lb) -> loss` (the loss before
     the update, detached): forward, backward and the optimizer's update
     of the tensors of `params` in place, all under `full_f32_matmul`.
-    precision "bf16" raises NotImplementedError.
+    precision "bf16" runs the units' matmuls as `blocks.Bf16Dot` (the
+    JAX step's Precision.DEFAULT on a TPU: bf16-rounded inputs, float32
+    products, sums and outputs, in the backward's products too); every
+    other op, the loss, the grads and the optimizer stay float32.
 
     With a `mesh` of several devices (`parallel.mesh.make_mesh`) the step
     is data-parallel: `step(replicas, im, lb)` takes one copy of the
@@ -167,14 +177,13 @@ def make_train_step(optimizer, *, modes: str, stages: int, scale: int,
     losses and gradients onto the first (`data_parallel_grads`), updates
     once and copies the params to the other replicas: the full-batch step
     up to summation order."""
-    if precision != "f32":
-        raise NotImplementedError(
-            f"precision={precision!r}: the port trains in float32 only "
-            "(ROADMAP Queue A item 6)")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
 
     def loss_fn(params, im, lb):
         return train_loss(params, im, lb, modes=modes, stages=stages,
-                          scale=scale)
+                          scale=scale, precision=precision)
 
     if mesh is not None and len(mesh) > 1:
         def dp_step(replicas, im, lb):
@@ -252,12 +261,9 @@ def train(opt, device=None) -> dict:
     Returns the final params ({unit: {name: tensor}}).  `opt.gpuNum > 1`
     trains data-parallel over min(gpuNum, device count) devices
     (`parallel.mesh.mesh_for`: gpuNum CPU shards with `device="cpu"`, or a
-    list of gpuNum devices given as `device`).  The options the port does not
-    run yet raise NotImplementedError, naming their ROADMAP item."""
-    if getattr(opt, "trainPrecision", "f32") != "f32":
-        raise NotImplementedError(
-            f"trainPrecision={opt.trainPrecision!r}: the port trains in "
-            "float32 only (bf16 matmuls are ROADMAP Queue A item 6)")
+    list of gpuNum devices given as `device`).  `opt.trainPrecision`
+    ("f32" or "bf16") picks the step's matmul precision
+    (`make_train_step`)."""
     mesh = mesh_for(device, getattr(opt, "gpuNum", 1), "train")
     dev = mesh[0]
     logger_name = "train"

@@ -31,6 +31,13 @@ def rgb2ycbcr(img: np.ndarray, max_val: int = 255) -> np.ndarray:
     return out.reshape(img.shape)
 
 
+def ycbcr2rgb(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) YCbCr -> RGB uint8 (inverse of `rgb2ycbcr`)."""
+    flat = img.reshape(-1, 3).astype(np.float64) - _YCBCR_O
+    rgb = flat @ np.linalg.inv(_YCBCR_T).T
+    return np.clip(np.round(rgb.reshape(img.shape)), 0, 255).astype(np.uint8)
+
+
 def modcrop(image: np.ndarray, modulo: int) -> np.ndarray:
     """Crop H and W down to multiples of `modulo` (ref: common/utils.py:28-39)."""
     if image.ndim == 2:

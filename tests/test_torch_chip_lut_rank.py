@@ -12,10 +12,22 @@ configuration's K1 call sites are the expected ones.
 import time
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke as cs
 from mulut_tpu_torch.ops import tail_kernel as tk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cpu_ms(torch_, fn, reps):

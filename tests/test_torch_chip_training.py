@@ -7,10 +7,22 @@ phase runs end to end and prints each reading the card run reports.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke as cs
 from mulut_tpu_torch.ops import tail_kernel as tk
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_phase13_rehearsal_on_cpu(capsys):

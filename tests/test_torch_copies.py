@@ -27,6 +27,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from mulut_tpu.models.blocks import init_mulut_unit as jax_init_unit
 from mulut_tpu.ops import quant as jquant
@@ -55,6 +56,17 @@ ttrain = importlib.import_module("mulut_tpu_torch.pipelines.train")
 
 REPO = Path(__file__).resolve().parents[1]
 MODES = "sdyeho"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_taps_constants_equal():
@@ -272,16 +284,24 @@ def test_import_loads_no_pil():
 
 
 def test_import_loads_no_jax():
-    """Importing every module of the port leaves `jax` and `mulut_tpu`
-    (exactly, or as a `mulut_tpu.` prefix) out of sys.modules."""
+    """Importing every module of the port, and loading each script of
+    `sr_torch/` by path (its `__main__` block not run), leaves `jax` and
+    `mulut_tpu` (exactly, or as a `mulut_tpu.` prefix) out of
+    sys.modules."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "mulut_tpu_torch").rglob("*.py")
     )
+    scripts = sorted(str(p) for p in (REPO / "sr_torch").glob("*.py"))
+    assert len(scripts) == 10
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({scripts!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'_script{i}', "
+        "path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mulut_tpu' or m.startswith('mulut_tpu.')]\n"
         "print(bad)\n"
@@ -296,8 +316,9 @@ def test_import_loads_no_jax():
 
 def test_sources_import_no_jax():
     files = list((REPO / "mulut_tpu_torch").rglob("*.py"))
+    files += sorted((REPO / "sr_torch").glob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 5
+    assert len(files) > 15
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
@@ -308,3 +329,33 @@ def test_sources_import_no_jax():
                 w.startswith("jax.") for w in words), (f, line)
             assert "mulut_tpu" not in words and not any(
                 w.startswith("mulut_tpu.") for w in words), (f, line)
+
+
+def _flag_table(options_cls):
+    """Every flag of an options class: (option strings, dest, default,
+    type, choices, action kind, help), in the parser's order."""
+    import argparse
+
+    parser = options_cls().initialize(argparse.ArgumentParser())
+    return [(tuple(a.option_strings), a.dest, a.default, a.type, a.choices,
+             type(a).__name__, a.help)
+            for a in parser._actions if a.dest != "help"]
+
+
+@pytest.mark.parametrize("name", ["BaseOptions", "TrainOptions",
+                                  "TestOptions"])
+def test_options_flag_table_equal(name):
+    """`utils/options.py`'s flags are JAX's, in JAX's order, with
+    `--device` (default None: the card) as the one addition, after
+    `--debug`."""
+    from mulut_tpu.utils import options as jopt
+    from mulut_tpu_torch.utils import options as topt
+
+    want = _flag_table(getattr(jopt, name))
+    got = _flag_table(getattr(topt, name))
+    device = [row for row in got if row[1] == "device"]
+    assert len(device) == 1
+    assert device[0][:5] == (("--device",), "device", None, str, None)
+    at = got.index(device[0])
+    assert got[at - 1][1] == "debug"
+    assert got[:at] + got[at + 1:] == want

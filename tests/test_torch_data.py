@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from mulut_tpu import data as jdata
 from mulut_tpu.utils import imgio as jio
@@ -20,6 +21,17 @@ from mulut_tpu.utils import metrics as jm
 from mulut_tpu_torch import data as tdata
 from mulut_tpu_torch.utils import imgio as tio
 from mulut_tpu_torch.utils import metrics as tm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

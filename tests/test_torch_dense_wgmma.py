@@ -36,6 +36,17 @@ RAGGED = (1, 63, 65, cs.DENSE_BLOCK_SITES - 1, cs.DENSE_BLOCK_SITES + 1,
 BENCH = (3_110_400, 12_441_600)   # an ensemble call's sites, K10's rows
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16(x):
     return torch.from_numpy(np.asarray(x, np.float32)).to(
         torch.bfloat16).float().numpy().astype(np.float64)

@@ -18,6 +18,17 @@ from mulut_tpu_torch.pipelines.evaluate import LutEvaluator
 CFG = dict(stages=2, modes="sdy", scale=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def small_luts():
     rng = np.random.default_rng(3)

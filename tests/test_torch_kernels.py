@@ -23,6 +23,17 @@ from mulut_tpu_torch.ops import tail_kernel as ttk
 from mulut_tpu_torch.ops.taps import fold_geometry, lane_rotation_perm
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("C,u,n", [(16, 8, 3000), (16, 16, 1000),
                                    (16, 64, 517)])
 def test_fold_contract_equals_jax(C, u, n):

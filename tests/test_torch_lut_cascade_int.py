@@ -45,6 +45,17 @@ from mulut_tpu_torch.ops.taps import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lut(interval, v, seed):
     L = 2 ** (8 - interval) + 1
     return np.random.default_rng(seed).integers(

@@ -11,11 +11,23 @@ byte for byte, on seeded random int8 LUTs of L**4 = 6,561 (interval 5) and
 
 import numpy as np
 import pytest
+import torch
 
 from mulut_tpu.pipelines.evaluate import LutEvaluator as JaxEvaluator
 from mulut_tpu_torch.pipelines.evaluate import LutEvaluator
 
 CFG = dict(stages=2, modes="sdy", scale=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=[5, 6])

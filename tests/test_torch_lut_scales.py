@@ -13,6 +13,7 @@ images.
 
 import numpy as np
 import pytest
+import torch
 
 from mulut_tpu.pipelines.evaluate import LutEvaluator as JaxEvaluator
 from mulut_tpu_torch.pipelines.evaluate import LutEvaluator
@@ -24,6 +25,17 @@ CONFIGS = {
     "x2-eho": (2, "eho", 2, 6, False),
     "x4-sdyeho": (2, "sdyeho", 4, 6, True),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=list(CONFIGS))

@@ -29,6 +29,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke as cs
@@ -44,6 +45,17 @@ from tests.test_torch_net_evaluate import (CFG, _jax_kernel_evaluator,
 
 ARTIFACTS = {2: cs.NET_WEIGHTS, 3: cs.NET_WEIGHTS_D3}
 _ = _pin_jax_routes  # the JAX package's default routes, pinned here too
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _params(depth):

@@ -33,6 +33,17 @@ CFG = dict(stages=2, modes="sdy", scale=4)
 ARTIFACT = "artifacts/mxu_distilled_x4sdy_nf128_d2_ftr2.npz"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _pin_jax_routes(monkeypatch):
     """The JAX package's default net-mode routes, pinned against

@@ -60,6 +60,17 @@ CFG = dict(stages=2, modes=MODES, scale=4)
 _ = _pin_routes  # both packages' default routes, pinned here too
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.cache
 def _weights():
     return jax.tree_util.tree_map(np.asarray,

@@ -21,6 +21,17 @@ from mulut_tpu_torch.ops import ensemble as tens
 from mulut_tpu_torch.ops import simplex as tsx
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _all_fracs(interval):
     q = 2 ** interval
     grid = np.array(list(itertools.product(range(q), repeat=4)), np.int32)

@@ -39,6 +39,17 @@ C = _constants()
 SLOTS, SLOT = C["kWideSlots"], C["kWideSlotBytes"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _stack(seed, depth, modes=1):
     """A plain nf=256 stack in the kernels' layout, bf16 values with few
     significant bits (every sum exact in any order)."""

@@ -40,6 +40,17 @@ _JAX_ENTRIES = (juk.stage_ensemble_apply, juk.stage_ensemble_apply_w,
 _MIXES = [None, "inner", "final", "final_u8", "final_pack"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _pin_routes(monkeypatch):
     """Both packages' default routes (window kernel, rs feature-major

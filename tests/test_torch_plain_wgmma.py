@@ -46,6 +46,17 @@ RAGGED = (1, 63, 64, 65, cs.PLAIN_BLOCK_SITES - 1, cs.PLAIN_BLOCK_SITES + 1,
           1_000_003, PLANE)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _constants():
     """The `constexpr int` values of net_common.cuh and plain_body.cuh, in
     source order (C's integer division)."""

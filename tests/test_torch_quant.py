@@ -59,6 +59,17 @@ NF16 = (16, 2, 10, False)
 NF32 = (32, 2, 34, True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.cache
 def _params(nf: int, depth: int = 2, seed: int = 0, dead: bool = False):
     """Plain-unit float32 NumPy params for both packages (shared: never

@@ -40,6 +40,17 @@ ARTIFACT = "artifacts/mxu_distilled_x4sdy_nf256_d2_ftr2.npz"
 _ = calibrate_once  # the module-scoped fixture, shared from test_torch_quant
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.cache
 def _weights():
     return jax.tree_util.tree_map(np.asarray, jax_load_npz(ARTIFACT))

@@ -28,6 +28,17 @@ INTERVAL = 6
 L = 2 ** (8 - INTERVAL) + 1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tie_planes():
     """Four (81, 4) planes: every fraction quadruple over {0, 1, 2} (all
     tie patterns), beside random pixels."""

@@ -22,6 +22,17 @@ KERNEL_FORMATS = dict(shared_quad=True, corner16_modes="y",
                       fold16_modes="sd", k128_stage1="sd", int8_stage1="y")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _luts(interval, seed, dtype=np.int8):
     L = 2 ** (8 - interval) + 1
     rng = np.random.default_rng(seed)

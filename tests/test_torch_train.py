@@ -52,6 +52,17 @@ ttr = importlib.import_module("mulut_tpu_torch.pipelines.train")
 CFG = dict(modes="sdy", stages=2, scale=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.cache
 def _params(seed: int = 1) -> dict:
     return tsn.init_srnets(np.random.default_rng(seed), nf=8, arch="dense",
@@ -277,16 +288,16 @@ def test_checkpoints_load_across_packages(tmp_path):
 
 
 def test_unported_options_and_devices_raise():
-    """bf16 training names its ROADMAP item; without CUDA the entry points
-    raise unless device="cpu", with one card or several (gpuNum > 1 runs
-    since the port's parallel slice: tests/test_torch_parallel.py)."""
-    opt = types.SimpleNamespace(trainPrecision="bf16", gpuNum=1)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        ttr.train(opt, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ttr.make_train_step(None, precision="bf16", **CFG)
+    """bf16 training runs since the port's CLI slice
+    (tests/test_torch_train_bf16.py) and a precision of neither kind
+    raises; without CUDA the entry points raise unless device="cpu", with
+    one card or several (gpuNum > 1 runs since the port's parallel slice:
+    tests/test_torch_parallel.py), in either precision."""
+    assert callable(ttr.make_train_step(None, precision="bf16", **CFG))
+    with pytest.raises(ValueError, match="precision must be one of"):
+        ttr.make_train_step(None, precision="fp8", **CFG)
     if torch.cuda.is_available():
         return
-    for n in (1, 2):
+    for n, prec in ((1, "f32"), (2, "f32"), (1, "bf16")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            ttr.train(types.SimpleNamespace(trainPrecision="f32", gpuNum=n))
+            ttr.train(types.SimpleNamespace(trainPrecision=prec, gpuNum=n))

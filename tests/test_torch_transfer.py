@@ -40,6 +40,17 @@ CFG = dict(stages=2, modes="sdy")
 FLIP_SHARE = 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.cache
 def _params(which: str) -> dict:
     if which == "ftr2":

@@ -42,6 +42,17 @@ BATCH_CALL = 3_110_400           # a K11 call's sites: 8 x 3 x 270 x 480 / 2
 RAGGED = (1, 63, 64, 65, 767, 769, 1_000_003, BATCH_CALL)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _constants():
     """The `constexpr int` values of net_common.cuh and plain_w8a8.cu."""
     env = {}

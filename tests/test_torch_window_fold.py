@@ -31,6 +31,17 @@ from mulut_tpu_torch.ops import tail_kernel as ttk
 from mulut_tpu_torch.ops.taps import mode_taps, rotated_taps
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread while this module runs: its many
+    small ops under the suite's worker processes otherwise spend their
+    time in OpenMP barriers of oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _table(interval, width, seed):
     L = 2 ** (8 - interval) + 1
     rng = np.random.default_rng(seed)
